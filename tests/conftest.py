@@ -60,6 +60,8 @@ def pytest_configure(config):
         "markers", "tpu: runs on the real TPU chip (MITSUBA_TPU_TESTS=1)")
     config.addinivalue_line(
         "markers", "slow: multi-process / long-running tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skipped when there is none")
 
 
 def pytest_collection_modifyitems(config, items):
