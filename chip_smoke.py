@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the repository's sources, checks each kernel
-against its plain PyTorch version on the card (bit for bit) and times both,
-renders the golden configuration and the headline Cornell render (256x256,
-256 spp, depth 8) through the kernels, and checks the images. Every phase
-prints one line; any failure raises, so the exit code is non-zero. The
-last line is a JSON object naming the device. Needs a CUDA device: without
-one it exits non-zero and prints no result.
+Builds the CUDA kernels from the repository's sources (one nvcc each, in
+parallel), checks each kernel against its plain PyTorch version on the card
+(bit for bit) and times both, renders the golden configuration, the
+headline Cornell render (256x256, 256 spp, depth 8) and the big-mesh render
+(the 70,034-triangle displaced sphere, 128x128, 16 spp, depth 4, fused and
+compacted wavefront) through the kernels, and checks the images. Every
+phase prints one line; any failure raises, so the exit code is non-zero.
+The line before the last lists the kernels as JSON; the last names the
+device. Needs a CUDA device: without one it exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -42,8 +45,45 @@ GOLDEN_TOL = 1e-4
 GOLDEN_MAX_FLIPS = 1
 GOLDEN_MAX_FLIP = 0.01
 KERNEL_RAYS = 1 << 18
-SOURCE = "mitsuba_tpu_torch/csrc/brute_intersect.cu"
-REPLACES = "mitsuba_tpu/ops/pallas_intersect.py:41"
+# Big-mesh render: the JAX package's bigmesh_70k_render_mean on a TPU
+# (BENCH_r05.json), whose camera ran at the TPU's bfloat16 matmul precision
+# (see HEADLINE_MEAN); held to 1% with that rounding emulated.
+BIGMESH_MEAN = 0.016075248
+BIGMESH_MEAN_RTOL = 0.01
+# kernel against brute force on the big mesh: tests/test_bvh.py:163-169
+BVH_AGREE = 0.998
+BVH_T_RTOL, BVH_T_ATOL = 1e-4, 1e-5
+# (source, TPU kernel replaced, the path whose run counts its launches):
+# the Cornell headline render; the big-mesh render (wavefront, fused and
+# compacted: the fused entry only); the big-mesh useful-ray count pass
+# (path.li_with_stats, unfused: the closest and any-hit entries)
+KERNELS = {
+    "brute_closest": ("mitsuba_tpu_torch/csrc/brute_intersect.cu",
+                      "mitsuba_tpu/ops/pallas_intersect.py:41", "headline_render"),
+    "brute_any_hit": ("mitsuba_tpu_torch/csrc/brute_intersect.cu",
+                      "mitsuba_tpu/ops/pallas_intersect.py:41", "headline_render"),
+    "bvh_closest": ("mitsuba_tpu_torch/csrc/bvh_intersect.cu",
+                    "mitsuba_tpu/ops/binned_intersect.py:358", "bigmesh_count_pass"),
+    "bvh_any_hit": ("mitsuba_tpu_torch/csrc/bvh_intersect.cu",
+                    "mitsuba_tpu/ops/binned_intersect.py:358", "bigmesh_count_pass"),
+    "bvh_closest_and_any": ("mitsuba_tpu_torch/csrc/bvh_intersect.cu",
+                            "mitsuba_tpu/ops/binned_intersect.py:358", "bigmesh_render"),
+}
+# Bounds: the H100 SXM's published peaks (HBM3; float32 outside the tensor
+# cores, 67 TFLOP/s counting an FMA as two operations, so 33.5e12 float32
+# instructions per second), and the float32 instructions each test needs at
+# the least, every multiply-add pair contracted into one FMA (add, sub, mul,
+# FMA, div, min, max; compares not counted). The kernels, built with
+# --fmad=false, issue more: 46 and 22 separate operations.
+# Moller-Trumbore 32: two cross products 12 (mul + FMA per component),
+# three dot products 9 (mul + 2 FMA), three scalings, the division, three
+# subtractions and u + v. Slab test 16: 6 FMA (lo * inv - o * inv, the
+# product o * inv once per ray), 6 per-axis min/max, 4 for entry and exit.
+PEAK_F32_INSTR = 33.5e12
+PEAK_HBM_BYTES = 3.35e12
+TRI_INSTR = 32
+SLAB_INSTR = 16
+RAY_BYTES = 28    # o, d, tmax (float32)
 
 
 def say(phase, **fields):
@@ -147,6 +187,33 @@ def compare_kernels(name, scene, o, d, limit, plain_reps, kernel_reps):
     return t_err, blocked_err, times
 
 
+def bound(n_bytes, instr):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    float32 instructions over the card's issue rate."""
+    t_bytes, t_ops = n_bytes / PEAK_HBM_BYTES, instr / PEAK_F32_INSTR
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def brute_bounds(scene, o, d, limit):
+    """Bounds of the two brute-force entries on these rays: every ray
+    tests every triangle (closest), or the triangles up to its first
+    opaque hit in index order (any-hit; the kernel's early exit)."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import intersect
+
+    n, n_tris = o.shape[0], scene.num_triangles
+    tris = intersect.tri_soa(scene)
+    oc, dc = intersect._ray_comps(o, d)
+    t = intersect._chunk_hits(oc, dc, tris, limit[:, None], limit[:, None])
+    hits = (t < intersect.MISS) & scene.tri_opaque[None, :]
+    first = torch.where(hits.any(1), hits.int().argmax(1) + 1, n_tris)
+    tables = n_tris * (36 + 1)
+    closest = bound(n * (RAY_BYTES + 8) + tables, n * n_tris * TRI_INSTR)
+    any_hit = bound(n * (RAY_BYTES + 1) + tables, int(first.sum()) * TRI_INSTR)
+    return closest, any_hit
+
+
 def phase_kernels(dev, n_rays, headline_rays):
     """Kernel against plain version on the card at 32, 1,156 and 4,096
     triangles, and at the main path's shape (the headline's Cornell batch):
@@ -170,8 +237,13 @@ def phase_kernels(dev, n_rays, headline_rays):
         any_hit["max_abs_err"] = max(any_hit["max_abs_err"], blocked_err)
         if main_shape:
             # the JSON line's times are those at the main path's shape
-            closest.update(ms=times["closest_ms"], plain_ms=times["closest_plain_ms"])
-            any_hit.update(ms=times["any_hit_ms"], plain_ms=times["any_hit_plain_ms"])
+            (c_ms, c_by), (a_ms, a_by) = brute_bounds(scene, o, d, limit)
+            closest.update(ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
+                           bound_ms=c_ms, bound_by=c_by, library_ms=None)
+            any_hit.update(ms=times["any_hit_ms"], plain_ms=times["any_hit_plain_ms"],
+                           bound_ms=a_ms, bound_by=a_by, library_ms=None)
+            say("kernel_bound", scene=name, rays=n, closest_bound_ms=c_ms,
+                closest_bound_by=c_by, any_hit_bound_ms=a_ms, any_hit_bound_by=a_by)
     return report
 
 
@@ -284,35 +356,42 @@ def phase_headline(dev, width, spp):
     return launches
 
 
-def phase_profile(dev, width, spp):
-    """Device busy share of the wavefront at the headline's lane count,
-    over a short render (torch.profiler, CUDA kernel time / wall time)."""
+def phase_profile(name, scene, cam, cfg, **render_kw):
+    """Device busy share of one render (torch.profiler, CUDA kernel time /
+    wall time of the same render without the profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from mitsuba_tpu_torch.integrators import common, wavefront
-    from mitsuba_tpu_torch.scene import builtin
+    from mitsuba_tpu_torch.integrators import wavefront
 
-    scene, cam = builtin.cornell_box(width=width, height=width, device=dev)
-    cfg = common.RenderConfig(spp=spp, max_depth=8, rr_depth=5, seed=0)
+    dev = scene.device
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    wavefront.render(scene, cam, cfg)
+    wavefront.render(scene, cam, cfg, **render_kw)
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
     # the profiler slows the host side; its device time is divided by the
     # wall time of the same render without it
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wavefront.render(scene, cam, cfg)
+        wavefront.render(scene, cam, cfg, **render_kw)
         torch.cuda.synchronize(dev)
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in prof.key_averages() if e.device_type == cuda]
     device_s = sum(e.device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
-    say("profile", resolution=f"{width}x{width}", spp=spp, wall_s=round(wall_s, 4),
-        device_busy_s=round(device_s, 4), busy_share=round(device_s / wall_s, 4),
+    say("profile", render=name, resolution=f"{cam.width}x{cam.height}", spp=cfg.spp,
+        wall_s=round(wall_s, 4), device_busy_s=round(device_s, 4),
+        busy_share=round(device_s / wall_s, 4),
         device_kernels=sum(e.count for e in kernels),
         top_ms=[(e.key[:48], round(e.device_time_total / 1e3, 2)) for e in top])
+
+
+def cornell_headline(dev, width, spp):
+    from mitsuba_tpu_torch.integrators import common
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(width=width, height=width, device=dev)
+    return scene, cam, common.RenderConfig(spp=spp, max_depth=8, rr_depth=5, seed=0)
 
 
 def phase_mesh(dev, width, spp):
@@ -336,6 +415,267 @@ def phase_mesh(dev, width, spp):
         raise AssertionError(f"sphere_shadow: kernel and plain renders differ by {diff}")
 
 
+def render_rays(scene, cam, lanes, seed, dev):
+    """The big-mesh wavefront's batches at its shapes: one camera ray per
+    lane (lanes x pixels, jittered), then, from each camera hit, a bounce
+    ray (uniform over the hemisphere of the geometric normal) and the NEE
+    shadow ray (emitter.sample_direct, limit its distance). Lanes whose
+    camera ray missed carry retired rays (tmax 0), as the render's do.
+    Returns (camera, bounce, shadow), each (o, d, tmax)."""
+    import torch
+
+    from mitsuba_tpu_torch.models import emitter, sensor
+    from mitsuba_tpu_torch.ops import bvh_kernel, trace
+
+    w, h = cam.width, cam.height
+    n = w * h * lanes
+    rs = np.random.RandomState(seed)
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    pix = np.tile(np.arange(w * h), lanes)
+    o, d, _ = sensor.sample_rays(cam, f32(pix % w + rs.uniform(size=n)),
+                                 f32(pix // w + rs.uniform(size=n)), f32(np.zeros((n, 2))))
+    cam_tmax = torch.full((n,), 3e37, device=dev)
+    its = bvh_kernel.closest_hit(scene, scene.bvh, o, d, cam_tmax)
+    si = trace.surface_interaction(scene, o, d, its)
+    p, ng = si["p"], si["ng"]
+    v = f32(rs.normal(size=(n, 3)))
+    v = v / v.norm(dim=-1, keepdim=True)
+    v = torch.where((v * ng).sum(-1, keepdim=True) < 0, -v, v)
+    live = its.valid
+    bounce = ((p + ng * 1e-3).contiguous(), v.contiguous(),
+              torch.where(live, 3e37, 0.0))
+    ds = emitter.sample_direct(scene, p, f32(rs.uniform(size=(n, 3))))
+    shadow = (p.contiguous(), ds.d.contiguous(),
+              torch.where(live & (ds.pdf > 0), ds.dist, 0.0))
+    return (o, d, cam_tmax), bounce, shadow
+
+
+def compare_bvh(name, bvh, closest, shadow, reps=0):
+    """The three BVH entries and the plain walk on the same rays: raise
+    unless key, base and blocked are equal bit for bit. With reps, time
+    each entry and its plain version (CUDA events). Returns the errors,
+    times and the walk's work (node visits, triangle tests)."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.ops import bvh_traverse as bt
+
+    o, d, tmax = closest
+    o_s, d_s, dist = shadow
+    limit = (dist * (1.0 - 1e-3)).contiguous()
+    n_c, n_s = o.shape[0], o_s.shape[0]
+    key, base = bvk.closest_key(bvh, o, d, tmax)
+    blocked = bvk.blocked(bvh, o_s, d_s, limit)
+    fkey, fbase, fblocked = bvk.closest_and_any_key(bvh, o, d, tmax, o_s, d_s, limit)
+    work = {"closest": {}, "any_hit": {}, "closest_and_any": {}}
+    pkey, pbase, _ = bt.walk(bvh, o, d, tmax, n_c, work["closest"])
+    pblocked = bt.walk(bvh, o_s, d_s, limit, 0, work["any_hit"])[2]
+    fused_plain = bt.walk(bvh, torch.cat([o, o_s]), torch.cat([d, d_s]),
+                          torch.cat([tmax, limit]), n_c, work["closest_and_any"])
+    torch.cuda.synchronize()
+    bad = {
+        "closest_key_mismatch": int(((key != pkey) | (base != pbase)).sum()),
+        "any_hit_blocked_mismatch": int((blocked != pblocked).sum()),
+        "fused_key_mismatch": int(((fkey != fused_plain[0][:n_c])
+                                   | (fbase != fused_plain[1][:n_c])).sum()),
+        "fused_blocked_mismatch": int((fblocked != fused_plain[2][n_c:]).sum()),
+    }
+    t_k = bt.decode(bvh, key, base).t
+    t_p = bt.decode(bvh, pkey, pbase).t
+    hit = t_p < 1e30
+    t_err = float((t_k - t_p)[hit].abs().max()) if bool(hit.any()) else 0.0
+    errs = {"bvh_closest": t_err,
+            "bvh_any_hit": float((blocked.int() - pblocked.int()).abs().max()),
+            "bvh_closest_and_any": max(
+                float((bt.decode(bvh, fkey, fbase).t - t_p)[hit].abs().max())
+                if bool(hit.any()) else 0.0,
+                float((fblocked.int() - pblocked.int()).abs().max()))}
+    times = {}
+    if reps:
+        dev = o.device
+        times = {
+            "bvh_closest": (time_ms(lambda: bvk.closest_key(bvh, o, d, tmax), dev, reps),
+                            time_ms(lambda: bt.walk(bvh, o, d, tmax, n_c), dev, 2)),
+            "bvh_any_hit": (time_ms(lambda: bvk.blocked(bvh, o_s, d_s, limit), dev, reps),
+                            time_ms(lambda: bt.walk(bvh, o_s, d_s, limit, 0), dev, 2)),
+            "bvh_closest_and_any": (
+                time_ms(lambda: bvk.closest_and_any_key(bvh, o, d, tmax, o_s, d_s, limit),
+                        dev, reps),
+                time_ms(lambda: bt.walk(bvh, torch.cat([o, o_s]), torch.cat([d, d_s]),
+                                        torch.cat([tmax, limit]), n_c), dev, 2)),
+        }
+    say("bvh_kernel", rays=name, closest_rays=n_c, shadow_rays=n_s,
+        hit_frac=round(float(hit.float().mean()), 4),
+        blocked_frac=round(float(pblocked.float().mean()), 4),
+        t_max_abs_err=t_err, **bad, walk_work=work,
+        **{f"{k}_ms": round(v[0], 4) for k, v in times.items()},
+        **{f"{k}_plain_ms": round(v[1], 2) for k, v in times.items()})
+    if any(bad.values()):
+        raise AssertionError(f"bvh kernel and plain walk differ on {name}: {bad}")
+    return errs, times, work
+
+
+def bvh_bounds(bvh, n_c, n_s, work):
+    """Bounds of the three BVH entries: the node and leaf tables read once
+    plus rays in and results out, against the slab tests and triangle
+    tests this run's walk made (the twin's counts)."""
+    tables = (bvh.nodes.numel() * 4 + bvh.leaf_tris.numel() * 4
+              + bvh.leaf_opaque.numel())
+
+    def one(w, n_bytes):
+        return bound(tables + n_bytes,
+                     w.get("visits", 0) * SLAB_INSTR + w.get("tri_tests", 0) * TRI_INSTR)
+
+    return {"bvh_closest": one(work["closest"], n_c * (RAY_BYTES + 8)),
+            "bvh_any_hit": one(work["any_hit"], n_s * (RAY_BYTES + 1)),
+            "bvh_closest_and_any": one(work["closest_and_any"],
+                                       n_c * (RAY_BYTES + 8) + n_s * (RAY_BYTES + 1))}
+
+
+def phase_bvh_kernel(dev):
+    """The BVH kernel on the 70,034-triangle displaced sphere: against its
+    plain walk bit for bit on random rays and on the render's batches
+    (65,536 closest + 65,536 shadow rays, the main path's shapes), timed
+    there; and against the brute-force kernel (the exact reference) on
+    2^16 rays, at tests/test_bvh.py's bars."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.ops import intersect
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.displaced_sphere(device=dev)
+    bvh = scene.bvh
+    n = cam.width * cam.height * 4
+    o, d, limit = kernel_rays(scene, n, 70034, dev)
+    tmax = torch.full((n,), 3.0e38, device=dev)
+    errs_r, _, _ = compare_bvh("kernel_rays", bvh, (o, d, tmax), (o, d, limit))
+    camera, bounce, shadow = render_rays(scene, cam, 4, 1, dev)
+    errs_c, _, _ = compare_bvh("camera_and_shadow", bvh, camera, shadow)
+    errs, times, work = compare_bvh("bounce_and_shadow", bvh, bounce, shadow, reps=20)
+    bounds = bvh_bounds(bvh, n, n, work)
+
+    # against brute force (exact; the same quantised key), on random rays
+    its = bvk.closest_hit(scene, bvh, o, d, tmax)
+    blocked = bvk.blocked(bvh, o, d, limit)
+    tris = intersect.tri_soa(scene)
+    rkey, rbase = bk.closest_key(tris, o, d, tmax)
+    ref = intersect._finish_closest(scene, rkey, rbase, n)
+    ref_blocked = bk.any_hit(tris, scene.tri_opaque, o, d, limit)
+    both = ref.valid & its.valid
+    valid_agree = float((ref.valid == its.valid).float().mean())
+    prim_agree = float((ref.prim == its.prim)[both].float().mean())
+    blocked_agree = float((ref_blocked == blocked).float().mean())
+    t_ok = bool(torch.allclose(its.t[both], ref.t[both], rtol=BVH_T_RTOL, atol=BVH_T_ATOL))
+    say("bvh_vs_brute", tris=scene.num_triangles, rays=n,
+        valid_mismatch=int((ref.valid != its.valid).sum()),
+        prim_mismatch=int((ref.prim != its.prim)[both].sum()),
+        blocked_mismatch=int((ref_blocked != blocked).sum()),
+        t_max_rel_err=float(((its.t - ref.t).abs() / ref.t)[both].max()),
+        t_within_bars=t_ok, hit_frac=round(float(ref.valid.float().mean()), 4))
+    if min(valid_agree, prim_agree, blocked_agree) <= BVH_AGREE or not t_ok:
+        raise AssertionError("bvh kernel and brute force disagree beyond "
+                             "tests/test_bvh.py's bars")
+    say("bvh_bound", rays=n, **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
+        **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+        **{f"{k}_{w}": work[k.replace("bvh_", "")].get(w, 0)
+           for k in bounds for w in ("visits", "tri_tests")})
+    report = {}
+    for k in bounds:
+        report[k] = {"max_abs_err": max(errs[k], errs_r[k], errs_c[k]),
+                     "ms": times[k][0], "plain_ms": times[k][1],
+                     "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                     "library_ms": None}
+    return report
+
+
+def phase_bigmesh(dev, lanes=4):
+    """bench.py's bigmesh render at full size through the port: useful
+    rays per sample (li_with_stats on 2 spp of every pixel, the bench's
+    protocol) and the fused, compacted wavefront render, timed; then the
+    same render with the TPU's bfloat16 camera rounding, whose mean is
+    held to 1% of the TPU's. The two are separate paths and are counted
+    apart, each with the counts zeroed just before it and read just after:
+    the render must launch the fused entry, the count pass (the path
+    integrator, unfused) the closest and any-hit entries; neither may take
+    the plain walk or launch brute force. Returns the launches of each."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common, wavefront
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.displaced_sphere(device=dev)
+    cfg = common.RenderConfig(spp=16, max_depth=4, rr_depth=3, seed=0)
+    kw = dict(lanes_per_pixel=lanes, compact=True, fuse=True)
+    wavefront.render(scene, cam, cfg, **kw)   # warm-up, as the bench does
+
+    def timed_render():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        img = wavefront.render(scene, cam, cfg, **kw)
+        torch.cuda.synchronize(dev)
+        return img, time.perf_counter() - t0
+
+    def reset():
+        for counts in (bk, bvk):
+            counts.reset_counts()
+
+    def read():
+        return dict(bvk.KERNEL_LAUNCHES), dict(bvk.PLAIN_CALLS), dict(bk.KERNEL_LAUNCHES)
+
+    # as bench.py measures it: the useful-ray count (path.li_with_stats),
+    # then the render, each path counted on its own
+    reset()
+    rays_per_sample = useful_rays_per_sample(scene, cam, cfg, count_spp=2)
+    count_launches, count_plain, count_brute = read()
+    reset()
+    img, render_s = timed_render()
+    launches, plain, brute = read()
+    steps = launches["closest_and_any"]
+    # host-bound: the clock varies from render to render; the median of
+    # three (the counted one first) is the figure
+    renders_s = [render_s, timed_render()[1], timed_render()[1]]
+    render_s = sorted(renders_s)[1]
+    mean = float(img.mean())
+    with bf16_camera():
+        img_bf16 = wavefront.render(scene, cam, cfg, **kw)
+    mean_bf16 = float(img_bf16.mean())
+    useful = rays_per_sample * cam.width * cam.height * cfg.spp
+    say("bigmesh", tris=scene.num_triangles, resolution=f"{cam.width}x{cam.height}",
+        spp=cfg.spp, max_depth=cfg.max_depth, lanes=lanes, fuse=True, compact=True,
+        render_s=round(render_s, 4), renders_s=[round(x, 4) for x in renders_s],
+        rays_per_sample=round(rays_per_sample, 4),
+        useful_rays_per_s=round(useful / render_s), steps=steps,
+        bvh_kernel_launches=launches, bvh_plain_calls=plain, brute_launches=brute,
+        count_pass_bvh_kernel_launches=count_launches,
+        count_pass_bvh_plain_calls=count_plain, count_pass_brute_launches=count_brute,
+        mean_radiance=round(mean, 8), mean_radiance_bf16_camera=round(mean_bf16, 8),
+        tpu_mean=BIGMESH_MEAN)
+    for what, im in (("bigmesh image", img), ("bf16-camera bigmesh image", img_bf16)):
+        if not bool(torch.isfinite(im).all()) or tuple(im.shape) != (cam.height, cam.width, 3):
+            raise AssertionError(f"{what}: shape {tuple(im.shape)}, "
+                                 f"finite {bool(torch.isfinite(im).all())}")
+    for what, ran, counts, calls, brute_counts in (
+            ("render", launches["closest_and_any"], launches, plain, brute),
+            ("count pass", min(count_launches["closest"], count_launches["any_hit"]),
+             count_launches, count_plain, count_brute)):
+        if ran == 0 or any(calls.values()) or any(brute_counts.values()):
+            raise AssertionError(f"big-mesh {what} bypassed the BVH kernel: launches "
+                                 f"{counts}, plain calls {calls}, brute launches "
+                                 f"{brute_counts}")
+    if abs(mean_bf16 - BIGMESH_MEAN) > BIGMESH_MEAN_RTOL * BIGMESH_MEAN:
+        raise AssertionError(f"big-mesh mean with the TPU's camera rounding {mean_bf16} "
+                             f"is not within 1% of {BIGMESH_MEAN}")
+    phase_profile("bigmesh", scene, cam, cfg, **kw)
+    return {"bigmesh_render": launches, "bigmesh_count_pass": count_launches}
+
+
 def main() -> int:
     import torch
 
@@ -356,20 +696,28 @@ def main() -> int:
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    lib = _build.build("brute_intersect")
-    say("build", library=lib.name, seconds=round(time.perf_counter() - t0, 3))
+    libs = _build.build_all(["brute_intersect", "bvh_intersect"])
+    say("build", libraries=[lib.name for lib in libs],
+        seconds=round(time.perf_counter() - t0, 3))
 
     report = phase_kernels(dev, KERNEL_RAYS, 256 * 256)
+    report.update(phase_bvh_kernel(dev))
     phase_golden(dev)
-    launches = phase_headline(dev, 256, 256)
-    phase_profile(dev, 256, 4)
+    brute = phase_headline(dev, 256, 256)
+    phase_profile("headline", *cornell_headline(dev, 256, 4))
     phase_mesh(dev, 64, 16)
-
+    # each path's launches, counted from 0 just before it and read just
+    # after; a kernel's "launches" are those of the path it serves
+    paths = {"headline_render": {f"brute_{k}": v for k, v in brute.items()}}
+    for path, counts in phase_bigmesh(dev).items():
+        paths[path] = {f"bvh_{k}": v for k, v in counts.items()}
     kernels = []
-    for name, key in (("brute_closest", "closest"), ("brute_any_hit", "any_hit")):
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE,
-                        "replaces": REPLACES, "launches": launches[key],
-                        **report[name]})
+    for name, (source, replaces, path) in KERNELS.items():
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": paths[path][name],
+                        **report[name], "path": path,
+                        "launches_by_path": {p: c[name] for p, c in paths.items()
+                                             if name in c}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

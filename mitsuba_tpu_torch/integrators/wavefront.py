@@ -9,6 +9,12 @@ with the independent sampler.
 
 The JAX package runs the steps in one lax.while_loop; here a Python loop
 reads one flag from the device per step to decide whether to go on.
+
+`fuse` defers each step's NEE shadow ray into the next step's
+`trace.closest_and_any`, one fused launch on the card's BVH path. `compact`
+adds the compaction ladder: when the busy lanes fit a halved width, they
+are gathered into it (lanes carry their pixel ids; the film becomes a
+scatter-add). Both keep the estimator and the sample streams.
 """
 from __future__ import annotations
 
@@ -32,13 +38,14 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
            compact: bool = False, fuse: bool | None = None) -> torch.Tensor:
     """Full-frame render -> (H, W, 3) on the scene's device; primal only.
 
-    `fuse` (shadow rays deferred into the next step's dispatch) and
-    `compact` (the occupancy compaction ladder) act only on clustered big
-    meshes in the JAX package; both come with the big-mesh intersector and
-    raise until then."""
-    if fuse or compact:
-        raise NotImplementedError("wavefront fuse/compact act on clustered big "
-                                  "meshes, which are not ported yet")
+    fuse: defer the NEE shadow rays into the next step's fused dispatch
+    (default: `trace.fuses(scene)`, where the dispatch is one launch;
+    elsewhere it decomposes and fusing only adds state).
+    compact: the compaction ladder over halving widths >= max(1024, n/16);
+    it needs fuse and at least 4096 lanes, and raises without them rather
+    than doing nothing."""
+    if fuse is None:
+        fuse = trace.fuses(scene)
     if cfg.sampler != 0:
         raise NotImplementedError("the wavefront needs the independent sampler")
     if cfg.spp % lanes_per_pixel:
@@ -48,6 +55,9 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
     w, h = cam.width, cam.height
     npix = w * h
     n = npix * lanes_per_pixel
+    if compact and not (fuse and n >= 4 * 1024):
+        raise ValueError(f"compact=True acts only with fuse and >= 4096 lanes "
+                         f"(fuse={fuse}, {n} lanes)")
     spp_lane = cfg.spp // lanes_per_pixel
     families = scene.bsdf_families
     seed = cfg.seed
@@ -84,6 +94,22 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
         prev_delta=torch.ones((n,), dtype=torch.bool, device=dev),
         eta_scale=f32(1.0, n),
     )
+    if fuse:
+        # the previous step's NEE shadow ray, traced with this step's
+        # closest-hit batch
+        state.update(
+            pend=torch.zeros((n,), dtype=torch.bool, device=dev),
+            pend_o=f32(0.0, n, 3),
+            pend_d=torch.tensor([[1.0, 0.0, 0.0]], device=dev).repeat(n, 1),
+            pend_dist=f32(0.0, n),
+            pend_contrib=f32(0.0, n, 3),
+            # resolve into L_accum (the path completed) rather than L_path
+            pend_accum=torch.zeros((n,), dtype=torch.bool, device=dev),
+        )
+
+    def busy_of(s):
+        busy = s["done"] < spp_lane
+        return busy | s["pend"] if fuse else busy
 
     def step(s):
         o, d = s["o"], s["d"]
@@ -94,8 +120,21 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
             return uniform(seed, s["pix"], sample,
                            SENSOR_DIMS + t * DIMS_PER_BOUNCE + k)
 
-        its = trace.closest_hit(scene, o, d)
-        L_path = s["L_path"]
+        if fuse:
+            # this step's closest batch and the last step's shadow batch in
+            # one dispatch; retired lanes trace tmax = 0 rays
+            tmax_c = torch.where(lane_live, 3e37, 0.0)
+            its, blocked = trace.closest_and_any(
+                scene, o, d, tmax_c, s["pend_o"], s["pend_d"],
+                torch.where(s["pend"], s["pend_dist"], 0.0))
+            resolved = torch.where((s["pend"] & ~blocked)[:, None], s["pend_contrib"], 0.0)
+            to_accum = s["pend_accum"][:, None]
+            L_accum_in = s["L_accum"] + torch.where(to_accum, resolved, 0.0)
+            L_path = s["L_path"] + torch.where(to_accum, 0.0, resolved)
+        else:
+            its = trace.closest_hit(scene, o, d)
+            L_accum_in = s["L_accum"]
+            L_path = s["L_path"]
         si = trace.surface_interaction(scene, o, d, its)
         ns, ng, p = si["ns"], si["ng"], si["p"]
         wi_local = m.to_local(ns, si["wi_world"])
@@ -138,8 +177,9 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
         w_nee = torch.where(ds.is_delta, 1.0,
                             mis_weight(cfg.mis_mode, ds.pdf, pdf_b_nee))
         contrib = beta * f_nee * ds.radiance * m.safe_div(w_nee, ds.pdf)[:, None]
-        blocked = trace.shadow_blocked(scene, p, ds.d, ds.dist)
-        L_path = L_path + torch.where((nee_ok & ~blocked)[:, None], contrib, 0.0)
+        if not fuse:
+            blocked = trace.shadow_blocked(scene, p, ds.d, ds.dist)
+            L_path = L_path + torch.where((nee_ok & ~blocked)[:, None], contrib, 0.0)
 
         # BSDF sample + continuation decision
         wo, weight, pdf, is_delta = bsdflib.sample(
@@ -164,7 +204,7 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
         # --- regeneration ---------------------------------------------------
         died = lane_live & ~alive
         new_done = s["done"] + died
-        L_accum = s["L_accum"] + torch.where(died[:, None], L_path, 0.0)
+        L_accum = L_accum_in + torch.where(died[:, None], L_path, 0.0)
         new_sample = sample + died
         o_cam, d_cam = camera_ray_at(s["pix"], new_sample)
         regen = died & (new_done < spp_lane)
@@ -174,7 +214,7 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
                              torch.where(alive[:, None], p + ng * off, o))
         d_next = torch.where(regen[:, None], d_cam,
                              torch.where(alive[:, None], d_new, d))
-        return dict(
+        out = dict(
             pix=s["pix"],
             o=o_next, d=d_next,
             sample=torch.where(died, new_sample, sample),
@@ -187,10 +227,42 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
             prev_delta=torch.where(alive, is_delta, True),
             eta_scale=torch.where(alive, eta_scale, 1.0),
         )
+        if fuse:
+            out.update(
+                pend=nee_ok,
+                pend_o=p,
+                pend_d=ds.d,
+                pend_dist=torch.where(nee_ok, ds.dist, 0.0),
+                pend_contrib=torch.where(nee_ok[:, None], contrib, 0.0),
+                # a dying path's pending NEE lands in the banked accumulator
+                pend_accum=died,
+            )
+        return out
 
-    # one device->host read per step: the loop's only sync
-    while bool((state["done"] < spp_lane).any()):
-        state = step(state)
-    img = state["L_accum"].reshape(lanes_per_pixel, npix, 3).sum(0)
+    # one device->host read per step (the busy flag, or in a ladder stage
+    # the busy count) decides whether to go on
+    if compact:
+        widths = []
+        wdt = n // 2
+        while wdt >= max(1024, n // 16):
+            widths.append(max(-(-wdt // 1024) * 1024, 1024))
+            wdt //= 2
+        film = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+        for nxt in widths:
+            # run the stage while the busy lanes outnumber the next width
+            while int((busy := busy_of(state)).sum()) > nxt:
+                state = step(state)
+            film.index_add_(0, state["pix"], state["L_accum"])
+            # stable: busy lanes first, in lane order; all of them fit
+            idx = torch.argsort((~busy).to(torch.uint8), stable=True)[:nxt]
+            state = {k: v[idx] for k, v in state.items()}
+            state["L_accum"] = torch.zeros_like(state["L_accum"])
+        while bool(busy_of(state).any()):
+            state = step(state)
+        img = film.index_add_(0, state["pix"], state["L_accum"])
+    else:
+        while bool(busy_of(state).any()):
+            state = step(state)
+        img = state["L_accum"].reshape(lanes_per_pixel, npix, 3).sum(0)
     img = torch.nan_to_num(img / cfg.spp, nan=0.0, posinf=0.0, neginf=0.0)
     return img.reshape(h, w, 3)

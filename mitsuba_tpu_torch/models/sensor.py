@@ -56,7 +56,7 @@ def look_at(origin, target, up=(0.0, 1.0, 0.0)) -> np.ndarray:
 
 def make_camera(origin, target, up=(0, 1, 0), fov_x=39.0, width=256, height=256,
                 kind=SENSOR_PERSPECTIVE, aperture=0.0, focus_dist=1.0,
-                kc=(0.0, 0.0), device="cpu") -> Camera:
+                kc=(0.0, 0.0), device="cuda") -> Camera:
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
@@ -72,7 +72,7 @@ def make_camera(origin, target, up=(0, 1, 0), fov_x=39.0, width=256, height=256,
     )
 
 
-def camera_from_jax(jcam, device="cpu") -> Camera:
+def camera_from_jax(jcam, device="cuda") -> Camera:
     """Carry a JAX package Camera across (leaves through `np.asarray`)."""
     if getattr(jcam, "to_world_end", None) is not None:
         raise NotImplementedError("camera motion blur is not ported")

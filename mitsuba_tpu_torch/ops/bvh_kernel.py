@@ -1,0 +1,195 @@
+"""Big-mesh closest hit and any-hit: the CUDA BVH walk and its plain twin.
+
+Replaces the TPU kernel `mitsuba_tpu/ops/binned_intersect.py:
+_make_kernel(n_groups)._kernel` (launched by `_dispatch_tiles`, reached
+from `closest_hit`, `any_hit` and `closest_and_any`), with those three
+entry points' signatures and `Intersection` contract. The TPU kernel ran
+bf16x3 GEMM tiles over Morton clusters, with a noise band, top-2
+candidates and an exact f32 re-test after it, because f32 on the MXU is
+emulated and per-lane gathers are slow there; its ray sort, sub-row mask,
+tile list and chunking served the same tiles. None of that is carried
+over. `csrc/bvh_intersect.cu` walks the threaded BVH of `scene/bvh.py`,
+one ray per thread, in exact f32, so there are no candidates to re-test.
+
+What bounds it on Hopper: the latency of the dependent node and leaf loads
+along each ray's walk (two 16-byte loads per node, nine per leaf), not
+bytes or flops; the tables sit in L2. Its design: packed aligned records
+read through the read-only cache, and many warps in flight. `closest_and_any`
+is one launch over [closest rays | shadow rays], the wavefront's fused step.
+
+Contract of both routes:
+  closest_key(bvh, o, d, tmax) -> (key int32 (N,), base int32 (N,))
+  blocked(bvh, o, d, limit) -> bool (N,)
+with key = (t_bits & ~127) | slot-in-leaf, base = leaf * LEAF_SIZE (miss:
+MISS_BITS, 0); `bvh_traverse.decode` turns them into an Intersection.
+The kernel is built with --fmad=false and repeats the twin's operations, so
+the two agree bit for bit.
+
+A CPU tensor takes the plain version (`bvh_traverse.walk`); a CUDA tensor
+launches the kernel or raises. KERNEL_LAUNCHES and PLAIN_CALLS count each
+route per entry point.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..core import math as m
+from . import bvh_traverse as BT
+from . import intersect as I
+
+KERNEL_LAUNCHES = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
+PLAIN_CALLS = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
+
+
+def reset_counts():
+    for counts in (KERNEL_LAUNCHES, PLAIN_CALLS):
+        for k in counts:
+            counts[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """Build (at first use) and bind the kernel library."""
+    from .. import _build
+
+    lib = ctypes.CDLL(str(_build.build("bvh_intersect")))
+    P, I32 = ctypes.c_void_p, ctypes.c_int
+    tables = [P, P, P, I32, I32]   # nodes, leaf_tris, leaf_opaque, n_internal, cap
+    lib.bvh_closest.argtypes = [P, P, P, I32, *tables, P, P, P]
+    lib.bvh_any_hit.argtypes = [P, P, P, I32, *tables, P, P]
+    lib.bvh_closest_and_any.argtypes = [P, P, P, I32, P, P, P, I32, *tables, P, P, P, P]
+    for fn in (lib.bvh_closest, lib.bvh_any_hit, lib.bvh_closest_and_any):
+        fn.restype = I32
+    return lib
+
+
+def _check(bvh, rays):
+    """rays: (name, o, d, tmax) groups. Raises on what the kernel does not
+    take."""
+    dev = rays[0][1].device
+    if dev.type != "cuda":
+        raise ValueError(f"bvh kernel: rays on {dev}, expected a CUDA device")
+    if sum(o.shape[0] for _, o, _, _ in rays) >= 2 ** 31 or \
+            bvh.nodes is None or bvh.nodes.shape[0] >= 2 ** 30:
+        raise ValueError("bvh kernel: 2^31 rays or more, 2^30 nodes or more, "
+                         "or no kernel tables (scene/bvh.attach builds them)")
+    cap = bvh.leaf_tris.shape[1]
+    tables = (("nodes", bvh.nodes, torch.float32, (bvh.nodes.shape[0], 8)),
+              ("leaf_tris", bvh.leaf_tris, torch.float32, (9, cap)),
+              ("leaf_opaque", bvh.leaf_opaque, torch.bool, (cap,)))
+    for name, o, d, tm in rays:
+        n = o.shape[0]
+        tables += ((f"{name} o", o, torch.float32, (n, 3)),
+                   (f"{name} d", d, torch.float32, (n, 3)),
+                   (f"{name} tmax", tm, torch.float32, (n,)))
+    for name, x, dtype, shape in tables:
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"bvh kernel: {name} must be a contiguous {dtype} {shape} tensor "
+                f"on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    for name, x in (("nodes", bvh.nodes), ("leaf_tris", bvh.leaf_tris),
+                    ("leaf_opaque", bvh.leaf_opaque)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"bvh kernel: {name} is not 16-byte aligned")
+    if cap % 4:
+        raise ValueError("bvh kernel: leaf slots not a multiple of 4")
+
+
+def _tables(bvh):
+    return (bvh.nodes.data_ptr(), bvh.leaf_tris.data_ptr(), bvh.leaf_opaque.data_ptr(),
+            bvh.n_internal, bvh.leaf_tris.shape[1])
+
+
+def _launch(entry, *args, dev):
+    with torch.cuda.device(dev):
+        KERNEL_LAUNCHES[entry] += 1
+        fn = getattr(_lib(), "bvh_" + entry)
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bvh kernel {entry}: CUDA error {rc} at launch")
+
+
+def _empty(n, dtype, dev):
+    return torch.empty((n,), dtype=dtype, device=dev)
+
+
+def closest_key(bvh, o, d, tmax):
+    """Packed closest-hit keys of rays (o, d) with t < tmax."""
+    if o.device.type == "cpu":
+        PLAIN_CALLS["closest"] += 1
+        key, base, _ = BT.walk(bvh, o, d, tmax, o.shape[0])
+        return key, base
+    _check(bvh, [("closest", o, d, tmax)])
+    n = o.shape[0]
+    key, base = _empty(n, torch.int32, o.device), _empty(n, torch.int32, o.device)
+    _launch("closest", o.data_ptr(), d.data_ptr(), tmax.data_ptr(), n, *_tables(bvh),
+            key.data_ptr(), base.data_ptr(), dev=o.device)
+    return key, base
+
+
+def blocked(bvh, o, d, limit):
+    """True where an opaque triangle is hit with SHADOW_EPS < t < limit."""
+    if o.device.type == "cpu":
+        PLAIN_CALLS["any_hit"] += 1
+        return BT.walk(bvh, o, d, limit, 0)[2]
+    _check(bvh, [("shadow", o, d, limit)])
+    n = o.shape[0]
+    out = _empty(n, torch.bool, o.device)
+    _launch("any_hit", o.data_ptr(), d.data_ptr(), limit.data_ptr(), n, *_tables(bvh),
+            out.data_ptr(), dev=o.device)
+    return out
+
+
+def closest_and_any_key(bvh, o_c, d_c, tmax_c, o_s, d_s, limit_s):
+    """Both queries in one walk: (key, base) of the closest rays and
+    blocked of the shadow rays."""
+    n_c, n_s = o_c.shape[0], o_s.shape[0]
+    if o_c.device.type == "cpu":
+        PLAIN_CALLS["closest_and_any"] += 1
+        key, base, blk = BT.walk(bvh, torch.cat([o_c, o_s]), torch.cat([d_c, d_s]),
+                                 torch.cat([tmax_c, limit_s]), n_c)
+        return key[:n_c], base[:n_c], blk[n_c:]
+    _check(bvh, [("closest", o_c, d_c, tmax_c), ("shadow", o_s, d_s, limit_s)])
+    dev = o_c.device
+    key, base = _empty(n_c, torch.int32, dev), _empty(n_c, torch.int32, dev)
+    blk = _empty(n_s, torch.bool, dev)
+    _launch("closest_and_any", o_c.data_ptr(), d_c.data_ptr(), tmax_c.data_ptr(), n_c,
+            o_s.data_ptr(), d_s.data_ptr(), limit_s.data_ptr(), n_s, *_tables(bvh),
+            key.data_ptr(), base.data_ptr(), blk.data_ptr(), dev=dev)
+    return key, base, blk
+
+
+# ---------------------------------------------------------------------------
+# binned_intersect's entry points
+# ---------------------------------------------------------------------------
+
+def _tmax(o, tmax):
+    if tmax is None:
+        return torch.full((o.shape[0],), m.INF, dtype=torch.float32, device=o.device)
+    return tmax.contiguous()
+
+
+def closest_hit(scene, bvh, o, d, tmax=None) -> I.Intersection:
+    key, base = closest_key(bvh, o.contiguous(), d.contiguous(), _tmax(o, tmax))
+    return BT.decode(bvh, key, base)
+
+
+def any_hit(scene, bvh, o, d, tmax) -> torch.Tensor:
+    """Shadow query: True if an opaque triangle blocks
+    (SHADOW_EPS, tmax*(1-SHADOW_EPS))."""
+    return blocked(bvh, o.contiguous(), d.contiguous(),
+                   (tmax * (1.0 - I.SHADOW_EPS)).contiguous())
+
+
+def closest_and_any(scene, bvh, o_c, d_c, tmax_c, o_s, d_s, tmax_s):
+    """Closest hit of (o_c, d_c) below tmax_c and shadow any-hit of
+    (o_s, d_s) below tmax_s*(1-SHADOW_EPS), in one launch. Retired rays
+    (tmax 0) neither hit nor block."""
+    key, base, blk = closest_and_any_key(
+        bvh, o_c.contiguous(), d_c.contiguous(), _tmax(o_c, tmax_c),
+        o_s.contiguous(), d_s.contiguous(), (tmax_s * (1.0 - I.SHADOW_EPS)).contiguous())
+    return BT.decode(bvh, key, base), blk

@@ -50,17 +50,20 @@ def tri_soa(scene) -> torch.Tensor:
     return torch.cat([p0, e1, e2], dim=1).T.contiguous()
 
 
-def _chunk_hits(o, d, tri, tmax, best_t):
-    """Hit tests of every ray against one chunk of triangles.
+def tri_test(o, d, tri):
+    """Moller-Trumbore of rays against triangles, all broadcastable.
 
-    o, d: ray components as 6 (N, 1) tensors; tri: (9, C) triangle rows;
-    tmax, best_t: (N, 1) or scalar. Returns t (N, C) with MISS on misses. The
-    operation order is the JAX package's, which the CUDA kernel repeats.
+    o, d: 3 ray components each; tri: the 9 rows p0x p0y p0z e1x e1y e1z
+    e2x e2y e2z. Returns (t, hit), hit being the geometric test (barycentric
+    slack, t > SHADOW_EPS, det not tiny). The operation order is the JAX
+    package's (jnp.cross, then sums left to right), which the CUDA kernels
+    repeat.
     """
-    ox, oy, oz, dx, dy, dz = o + d  # list concat: 6 tensors
-    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = (r[None, :] for r in tri)
+    ox, oy, oz = o
+    dx, dy, dz = d
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = tri
 
-    # pvec = d x e2  (outer: (N,1) x (1,C) -> (N,C))
+    # pvec = d x e2
     pvx = dy * e2z - dz * e2y
     pvy = dz * e2x - dx * e2z
     pvz = dx * e2y - dy * e2x
@@ -78,8 +81,18 @@ def _chunk_hits(o, d, tri, tmax, best_t):
     v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
     t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
     hit = ((u >= -BARY_EPS) & (v >= -BARY_EPS) & (u + v <= 1.0 + BARY_EPS)
-           & (t > SHADOW_EPS) & (t < best_t) & (t < tmax) & ~bad)
-    return torch.where(hit, t, MISS)
+           & (t > SHADOW_EPS) & ~bad)
+    return t, hit
+
+
+def _chunk_hits(o, d, tri, tmax, best_t):
+    """Hit tests of every ray against one chunk of triangles.
+
+    o, d: 3 (N, 1) ray components each; tri: (9, C) triangle rows;
+    tmax, best_t: (N, 1) or scalar. Returns t (N, C) with MISS on misses.
+    """
+    t, hit = tri_test(o, d, [r[None, :] for r in tri])
+    return torch.where(hit & (t < best_t) & (t < tmax), t, MISS)
 
 
 def _ray_comps(o, d):

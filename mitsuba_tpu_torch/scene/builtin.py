@@ -1,16 +1,19 @@
-"""Built-in test scenes (port of scene/builtin.py): the Cornell box and the
-sphere-shadow mesh fixture. The geometry is built in numpy exactly as the
-JAX package builds it, then copied to `device`."""
+"""Built-in test scenes (port of scene/builtin.py): the Cornell box, the
+sphere-shadow mesh fixture and the big-mesh displaced sphere of the JAX
+package's bench. The geometry is built in numpy exactly as the JAX package
+builds it, then copied to `device` (the card unless the caller names
+another)."""
 from __future__ import annotations
 
 import numpy as np
 
+from . import bvh as bvhlib
 from . import ir
 from ..models import sensor as sensorlib
 
 
 def cornell_box(width=256, height=256, light_scale=1.0, area_light=True,
-                device="cpu"):
+                device="cuda"):
     """The classic Cornell box and its usual view. Returns (scene, camera).
     area_light=False omits the ceiling light."""
     verts: list = []
@@ -96,13 +99,11 @@ def _add_box(add_quad, mat, center, size, angle):
 
 
 def sphere_shadow(nu=72, nv=72, radius=0.25, width=20, height=20,
-                  attach_bvh=False, device="cpu"):
+                  attach_bvh=False, device="cuda"):
     """Mesh-scale shadow fixture: a UV-sphere blocker (2*nu*nv triangles)
     between an area light and a floor, seen from under the sphere. Returns
-    (scene, cam, sphere_vertex_rows). Only the brute-force form is ported:
-    attach_bvh=True raises until the big-mesh intersector lands."""
-    if attach_bvh:
-        raise NotImplementedError("sphere_shadow: BVH/cluster tables are not ported")
+    (scene, cam, sphere_vertex_rows). attach_bvh=True attaches the
+    stackless BVH (the JAX package also builds its cluster tables there)."""
     us = np.linspace(0, 2 * np.pi, nu, endpoint=False)
     vs = np.linspace(0, np.pi, nv + 1)
     c = (0.0, 1.0, 0.0)
@@ -143,7 +144,59 @@ def sphere_shadow(nu=72, nv=72, radius=0.25, width=20, height=20,
         tri_radiance={len(tris) - 2: [40.0] * 3,
                       len(tris) - 1: [40.0] * 3},
         device=device)
+    if attach_bvh:
+        scene = bvhlib.attach(scene)
     cam = sensorlib.make_camera(
         origin=[0.0, 0.55, 0.0], target=[0.0, 0.0, 0.0], up=[0, 0, 1],
         fov_x=80.0, width=width, height=height, device=device)
     return scene, cam, (0, base)
+
+
+# the big-mesh fixture's view (bench.py:_bigmesh_scene)
+DISPLACED_SPHERE_CAMERA = dict(origin=[0.0, 0.8, 3.6], target=[0, 0, 0], fov_x=45.0)
+
+
+def displaced_sphere_mesh(nu=235, nv=150):
+    """Geometry and materials of the displaced-sphere fixture as numpy:
+    (vertices, indices, tri_material, materials, tri_radiance), the
+    arguments of `ir.build_scene`. nu x (nv-1) x 2 sphere triangles
+    (70,030 at the defaults) over a floor, under a 12.0 area light."""
+    uu = np.linspace(0, 2 * np.pi, nu, endpoint=False)
+    vv = np.linspace(1e-3, np.pi - 1e-3, nv)
+    U, V = np.meshgrid(uu, vv, indexing="ij")
+    r = 1.0 + 0.15 * np.sin(5 * U) * np.sin(4 * V)
+    verts = np.stack([np.sin(V) * np.cos(U) * r, np.sin(V) * np.sin(U) * r,
+                      np.cos(V) * r], -1).reshape(-1, 3).astype(np.float32)
+    i = np.arange(nu)[:, None]
+    j = np.arange(nv - 1)[None, :]
+    a, b = i * nv + j, ((i + 1) % nu) * nv + j
+    # per (i, j): [a, b, a+1] then [b, b+1, a+1], i-major as the bench's loop
+    tris = np.stack([np.stack([a, b, a + 1], -1), np.stack([b, b + 1, a + 1], -1)],
+                    2).reshape(-1, 3)
+    base = len(verts)
+    quads = np.asarray([
+        # floor y=-1.3
+        [-4, -1.3, -4], [-4, -1.3, 4], [4, -1.3, 4], [4, -1.3, -4],
+        # light y=+2.2 (normal -y)
+        [-0.8, 2.2, -0.8], [0.8, 2.2, -0.8], [0.8, 2.2, 0.8], [-0.8, 2.2, 0.8],
+    ], np.float32)
+    verts = np.concatenate([verts, quads])
+    extra = [[base, base + 1, base + 2], [base, base + 2, base + 3],
+             [base + 4, base + 5, base + 6], [base + 4, base + 6, base + 7]]
+    tris = np.concatenate([tris, np.asarray(extra)]).astype(np.int32)
+    T = len(tris)
+    tri_rad = {T - 2: [12.0, 12.0, 12.0], T - 1: [12.0, 12.0, 12.0]}
+    mats = [{"type": ir.BSDF_DIFFUSE, "reflectance": [0.6, 0.55, 0.5]}]
+    return verts, tris, np.zeros((T,), np.int32), mats, tri_rad
+
+
+def displaced_sphere(nu=235, nv=150, width=128, height=128, device="cuda"):
+    """The JAX package's big-mesh render fixture (bench.py:_bigmesh_scene):
+    a displaced sphere of 70,034 triangles at the defaults, with the BVH
+    attached. Returns (scene, camera)."""
+    verts, tris, tri_mat, mats, tri_rad = displaced_sphere_mesh(nu, nv)
+    scene = bvhlib.attach(ir.build_scene(verts, tris, tri_mat, mats,
+                                         tri_radiance=tri_rad, device=device))
+    cam = sensorlib.make_camera(width=width, height=height, device=device,
+                                **DISPLACED_SPHERE_CAMERA)
+    return scene, cam

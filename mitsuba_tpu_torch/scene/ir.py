@@ -3,8 +3,10 @@ of scene/ir.py).
 
 The scene is a dataclass of tensors. The static fields (`num_triangles`,
 `bsdf_families`, `has_env`, `has_area`, `has_null`, `group_probs`) stay
-plain Python, as they are static pytree fields in the JAX package. Textures,
-mip levels, vertex colours and wireframe materials are not ported yet.
+plain Python, as they are static pytree fields in the JAX package. `bvh`
+holds the stackless BVH of big meshes (scene/bvh.py; None until
+`bvh.attach`). Textures, mip levels, vertex colours and wireframe materials
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -139,6 +141,7 @@ class Scene(_Replace):
     has_env: bool = False
     has_area: bool = True
     has_null: bool = False
+    bvh: object = None  # scene/bvh.BVH, set by bvh.attach
 
     @property
     def device(self) -> torch.device:
@@ -167,7 +170,7 @@ def build_scene(
     vertex_colors: Optional[np.ndarray] = None,
     wire_params=None,
     lod_scale: Optional[float] = None,
-    device="cpu",
+    device="cuda",
 ) -> Scene:
     """Host-side scene assembly in numpy, then one copy to `device`."""
     unported = {"textures": textures or None, "vertex_colors": vertex_colors,
@@ -278,10 +281,10 @@ def build_scene(
 
 
 # JAX scene fields the port has no counterpart for yet; a scene that sets
-# one of them cannot be carried across.
-_UNPORTED = ("tex_mips", "tri_uv_density", "bvh", "clusters", "envmap",
-             "medium", "cloth", "delta_emitters", "occupancy",
-             "vertex_colors", "wire_params")
+# one of them cannot be carried across. (`clusters` is the JAX TPU kernel's
+# private table: from_jax drops it and carries `bvh` instead.)
+_UNPORTED = ("tex_mips", "tri_uv_density", "envmap", "medium", "cloth",
+             "delta_emitters", "occupancy", "vertex_colors", "wire_params")
 
 
 def _leaf(x, device):
@@ -294,18 +297,26 @@ def _tensor_fields(cls, src, device):
             for f in dataclasses.fields(cls)}
 
 
-def from_jax(jscene, device="cpu") -> Scene:
+def from_jax(jscene, device="cuda") -> Scene:
     """Carry a JAX package Scene across: each leaf goes through
     `np.array` (so `jscene` may hold jax or numpy arrays) and the static
-    fields are copied. Raises for the parts of the JAX IR the port does not
-    have yet."""
+    fields are copied. A JAX `bvh` comes across leaf by leaf, with the
+    port's kernel tables added; its `clusters` (the TPU kernel's private
+    table) are dropped, and need a `bvh` beside them. Raises for the parts
+    of the JAX IR the port does not have yet."""
     for name in _UNPORTED:
         if getattr(jscene, name, None) is not None:
             raise NotImplementedError(f"from_jax: scene.{name} is not ported")
     if getattr(jscene, "has_perturb", False):
         raise NotImplementedError("from_jax: normal/bump maps are not ported")
+    jbvh = getattr(jscene, "bvh", None)
+    if getattr(jscene, "clusters", None) is not None and jbvh is None:
+        raise NotImplementedError("from_jax: scene.clusters without a bvh: the "
+                                  "port walks the BVH and has no cluster tables")
     fields = {}
     for f in dataclasses.fields(Scene):
+        if f.name == "bvh":
+            continue
         if f.name == "materials":
             fields[f.name] = Materials(**_tensor_fields(Materials, jscene.materials, device))
         elif f.name == "emitters":
@@ -316,4 +327,12 @@ def from_jax(jscene, device="cpu") -> Scene:
             fields[f.name] = _leaf(getattr(jscene, f.name), device)
     fields["group_probs"] = tuple(float(p) for p in fields["group_probs"])
     fields["bsdf_families"] = tuple(int(b) for b in fields["bsdf_families"])
-    return Scene(**fields)
+    scene = Scene(**fields)
+    if jbvh is None:
+        return scene
+    from . import bvh as bvhlib
+
+    return bvhlib.attach(scene, bvhlib.BVH(
+        aabb_min=_leaf(jbvh.aabb_min, device), aabb_max=_leaf(jbvh.aabb_max, device),
+        miss_link=_leaf(jbvh.miss_link, device), tri_order=_leaf(jbvh.tri_order, device),
+        n_internal=int(jbvh.n_internal), n_leaves=int(jbvh.n_leaves)))

@@ -83,7 +83,7 @@ def test_plain_brute_equals_jax_vpu(name):
     a*b+c into FMAs, which the reference VPU form does not intend and the
     port's CUDA kernel is built without."""
     jscene, o, d, tmax = _case(name)
-    scene = tir.from_jax(jscene)
+    scene = tir.from_jax(jscene, device="cpu")
     with jax.disable_jit():
         ref = jI.intersect_brute(jscene, jnp.asarray(o), jnp.asarray(d))
         ref_blocked = jI.occluded_brute(jscene, jnp.asarray(o), jnp.asarray(d),
@@ -133,7 +133,7 @@ def test_plain_brute_matches_pallas_kernel():
     ref_blocked = _interp(pallas_intersect.any_hit)(
         jscene, jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmax))
 
-    scene = tir.from_jax(jscene)
+    scene = tir.from_jax(jscene, device="cpu")
     its = tI.intersect_brute(scene, torch.from_numpy(o), torch.from_numpy(d))
     blocked = tI.occluded_brute(scene, torch.from_numpy(o), torch.from_numpy(d),
                                 torch.from_numpy(tmax))
@@ -149,7 +149,7 @@ def test_plain_brute_matches_pallas_kernel():
 
 def test_surface_interaction_matches_jax():
     jscene, o, d, _ = cornell_primary_rays()
-    scene = tir.from_jax(jscene)
+    scene = tir.from_jax(jscene, device="cpu")
     ref_its = jI.intersect_brute(jscene, jnp.asarray(o), jnp.asarray(d))
     ref = jI.surface_interaction(jscene, jnp.asarray(o), jnp.asarray(d), ref_its)
     to, td = torch.from_numpy(o), torch.from_numpy(d)
@@ -174,7 +174,7 @@ def test_closest_and_any_matches_jax():
             jscene, jnp.asarray(o_c), jnp.asarray(d_c), None,
             jnp.asarray(o_s), jnp.asarray(d_s), jnp.asarray(tmax_s))
     its, blocked = tT.closest_and_any(
-        tir.from_jax(jscene), torch.from_numpy(o_c), torch.from_numpy(d_c), None,
+        tir.from_jax(jscene, device="cpu"), torch.from_numpy(o_c), torch.from_numpy(d_c), None,
         torch.from_numpy(o_s), torch.from_numpy(d_s), torch.from_numpy(tmax_s))
     for k in ("valid", "t", "prim"):
         assert np.array_equal(np.asarray(getattr(ref, k)), getattr(its, k).numpy()), k
@@ -186,7 +186,7 @@ def test_wrapper_routes_by_device():
     """A CPU tensor takes the plain version and counts it; a tensor on any
     other non-CUDA device is refused rather than sent down the plain path."""
     jscene, o, d, tmax = _case("rand3")
-    scene = tir.from_jax(jscene)
+    scene = tir.from_jax(jscene, device="cpu")
     tris = tI.tri_soa(scene)
     brute_kernel.reset_counts()
     brute_kernel.closest_key(tris, torch.from_numpy(o), torch.from_numpy(d),

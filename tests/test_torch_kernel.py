@@ -1,5 +1,5 @@
-"""The brute-force CUDA kernel against its plain PyTorch version on the
-card, and the kernel build. Imports no JAX, so the card's tests run
+"""The CUDA kernels (brute force, BVH walk) against their plain PyTorch
+versions on the card, and the kernel build. Imports no JAX, so the card's tests run
 where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernel.py
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from mitsuba_tpu_torch import _build
-from mitsuba_tpu_torch.ops import brute_kernel as bk, intersect
+from mitsuba_tpu_torch.ops import brute_kernel as bk, bvh_kernel as bvk, bvh_traverse, intersect
 from mitsuba_tpu_torch.scene import builtin
 
 torch.set_num_threads(1)
@@ -22,9 +22,9 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _rays(n, seed, dev):
+def _rays(n, seed, dev, lo=-0.2, hi=1.2):
     rs = np.random.RandomState(seed)
-    o = rs.uniform(-0.2, 1.2, (n, 3)).astype(np.float32)
+    o = rs.uniform(lo, hi, (n, 3)).astype(np.float32)
     d = rs.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     limit = rs.uniform(0.05, 2.0, n).astype(np.float32)
@@ -64,6 +64,44 @@ def test_kernel_refuses_bad_input(cuda):
         bk.closest_key(tris, o.double(), d, limit)
     with pytest.raises(ValueError, match="contiguous float32"):
         bk.closest_key(tris, o.T.contiguous().T, d, limit)
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_equals_plain_on_card(cuda):
+    """The BVH walk, built with --fmad=false, equals its plain twin bit for
+    bit in all three entries (a quarter of the rays retired, tmax 0), and
+    the fused launch equals the two separate ones."""
+    scene, _ = builtin.displaced_sphere(96, 64, device=cuda)
+    bvh = scene.bvh
+    n = 40_000
+    o, d, limit = _rays(n, 2, cuda, -2.0, 2.0)
+    o2, d2, _ = _rays(n, 3, cuda, -2.0, 2.0)
+    tmax = torch.where(torch.arange(n, device=cuda) % 4 == 0, 0.0, 3.0e38)
+    bvk.reset_counts()
+    key, base = bvk.closest_key(bvh, o, d, tmax)
+    blocked = bvk.blocked(bvh, o2, d2, limit)
+    fkey, fbase, fblocked = bvk.closest_and_any_key(bvh, o, d, tmax, o2, d2, limit)
+    assert bvk.KERNEL_LAUNCHES == {"closest": 1, "any_hit": 1, "closest_and_any": 1}
+    assert sum(bvk.PLAIN_CALLS.values()) == 0
+    pkey, pbase, _ = bvh_traverse.walk(bvh, o, d, tmax, n)
+    pblocked = bvh_traverse.walk(bvh, o2, d2, limit, 0)[2]
+    assert torch.equal(key, pkey) and torch.equal(base, pbase)
+    assert torch.equal(blocked, pblocked)
+    assert torch.equal(fkey, key) and torch.equal(fbase, base)
+    assert torch.equal(fblocked, blocked)
+    hit = bvh_traverse.decode(bvh, key, base).valid
+    assert 0 < int(hit.sum()) < n and not hit[0::4].any()
+    assert 0 < int(blocked.sum()) < n
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_refuses_bad_input(cuda):
+    scene, _ = builtin.displaced_sphere(24, 16, device=cuda)
+    o, d, limit = _rays(64, 1, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        bvk.closest_key(scene.bvh, o.double(), d, limit)
+    with pytest.raises(ValueError, match="contiguous"):
+        bvk.blocked(scene.bvh, o, d.T.contiguous().T, limit)
 
 
 def test_build_flags_and_missing_compiler(monkeypatch, tmp_path):

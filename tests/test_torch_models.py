@@ -26,7 +26,7 @@ N = 4096
 @pytest.fixture(scope="module")
 def cornell():
     jscene, jcam = jb.cornell_box(width=32, height=32)
-    scene, cam = tb.cornell_box(width=32, height=32)
+    scene, cam = tb.cornell_box(width=32, height=32, device="cpu")
     return jscene, jcam, scene, cam
 
 
@@ -51,7 +51,7 @@ def test_from_jax_round_trip(cornell):
     """Every leaf the port carries equals the JAX scene's, static fields
     included, and equals the port's own build of the scene."""
     jscene, jcam, scene, cam = cornell
-    carried = tir.from_jax(jscene)
+    carried = tir.from_jax(jscene, device="cpu")
     for obj, jobj in ((carried, jscene), (carried.materials, jscene.materials),
                       (carried.emitters, jscene.emitters)):
         for f in dataclasses.fields(obj):
@@ -68,16 +68,21 @@ def test_from_jax_round_trip(cornell):
     assert torch.equal(carried.emitters.tri_cdf, scene.emitters.tri_cdf)
     assert (carried.bsdf_families, carried.has_area, carried.num_triangles) == \
         (scene.bsdf_families, scene.has_area, scene.num_triangles)
-    carried_cam = tS.camera_from_jax(jcam)
+    carried_cam = tS.camera_from_jax(jcam, device="cpu")
     for f in ("to_world", "fov_x", "aperture", "focus_dist", "kc"):
         assert torch.equal(getattr(carried_cam, f), getattr(cam, f)), f
     assert (carried_cam.width, carried_cam.height) == (cam.width, cam.height)
 
 
 def test_from_jax_refuses_unported_fields(cornell):
-    jscene = cornell[0].replace(bvh=object())
-    with pytest.raises(NotImplementedError, match="bvh"):
-        tir.from_jax(jscene)
+    """A field the port has no counterpart for raises, and so do the TPU
+    kernel's cluster tables without the BVH the port walks instead."""
+    jscene = cornell[0].replace(occupancy=object())
+    with pytest.raises(NotImplementedError, match="occupancy"):
+        tir.from_jax(jscene, device="cpu")
+    jscene = cornell[0].replace(clusters=object())
+    with pytest.raises(NotImplementedError, match="clusters without a bvh"):
+        tir.from_jax(jscene, device="cpu")
 
 
 def test_sample_rays(cornell):
@@ -99,7 +104,7 @@ def test_sample_direct_and_pdfs(cornell, env):
     jscene, _, scene, _ = cornell
     if env:
         jscene = jscene.replace(env_radiance=jnp.asarray([0.2, 0.3, 0.4]), has_env=True)
-        scene = tir.from_jax(jscene)
+        scene = tir.from_jax(jscene, device="cpu")
     p, _, _, u, _ = _inputs(2)
     jds = jE.sample_direct(jscene, jnp.asarray(p), jnp.asarray(u[:, :3]))
     ds = tE.sample_direct(scene, torch.from_numpy(p), torch.from_numpy(u[:, :3]))
@@ -149,3 +154,17 @@ def test_unported_family_raises(cornell):
     mat = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="plastic"):
         tB.gather_shade_point(scene, mat, torch.zeros(4, 2))
+
+
+def test_entry_points_default_to_the_card():
+    """Every scene and camera builder runs on the card unless the caller
+    asks for the CPU (the CPU tests pass device="cpu")."""
+    import inspect
+
+    from mitsuba_tpu_torch.scene import bvh as tbvh
+
+    builders = (tir.build_scene, tir.from_jax, tb.cornell_box, tb.sphere_shadow,
+                tb.displaced_sphere, tS.make_camera, tS.camera_from_jax,
+                tbvh.build_bvh)
+    for fn in builders:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__

@@ -6,8 +6,10 @@ import pathlib
 import re
 
 import numpy as np
+import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mitsuba_tpu.integrators import common as jcom, path as jpath, wavefront as jwf
@@ -37,14 +39,14 @@ def _cornell(w, h, env=None):
     jscene, jcam = jb.cornell_box(width=w, height=h)
     if env is not None:
         jscene = jscene.replace(env_radiance=jnp.asarray(env), has_env=True)
-    return jscene, jcam, ir.from_jax(jscene), builtin.cornell_box(w, h)[1]
+    return jscene, jcam, ir.from_jax(jscene, device="cpu"), builtin.cornell_box(w, h, device="cpu")[1]
 
 
 def test_path_matches_golden():
     """tools/golden_scenes.py's cornell_path config: 32x32, 64 spp, depth
     8, rr 5, seed 7; the golden was rendered by the JAX package."""
     ref = np.load(ROOT / "tests" / "golden" / "cornell_path.npy")
-    scene, cam = builtin.cornell_box(width=32, height=32)
+    scene, cam = builtin.cornell_box(width=32, height=32, device="cpu")
     cfg = common.RenderConfig(spp=64, max_depth=8, rr_depth=5, seed=7)
     img = common.render(scene, cam, path.li, cfg).numpy()
     assert img.shape == ref.shape and img.dtype == np.float32
@@ -65,7 +67,7 @@ def test_wavefront_matches_jax_wavefront():
 def test_wavefront_matches_fixed_depth():
     """Same estimator and sample streams: the regenerative renderer equals
     the fixed-depth one."""
-    scene, cam = builtin.cornell_box(width=16, height=16)
+    scene, cam = builtin.cornell_box(width=16, height=16, device="cpu")
     cfg = common.RenderConfig(spp=16, max_depth=6, rr_depth=3, seed=4)
     ref = common.render(scene, cam, path.li, cfg)
     img = wavefront.render(scene, cam, cfg)
@@ -73,7 +75,7 @@ def test_wavefront_matches_fixed_depth():
 
 
 def test_lane_split_invariant():
-    scene, cam = builtin.cornell_box(width=8, height=8)
+    scene, cam = builtin.cornell_box(width=8, height=8, device="cpu")
     cfg = common.RenderConfig(spp=8, max_depth=3, seed=2)
     a = wavefront.render(scene, cam, cfg, lanes_per_pixel=1)
     b = wavefront.render(scene, cam, cfg, lanes_per_pixel=4)
@@ -92,7 +94,7 @@ def test_env_depth1_matches_jax_path():
 def test_useful_ray_count():
     """li_with_stats counts the lanes that traced a closest-hit or a shadow
     ray; on Cornell every primary ray hits, so bounce 0 alone gives n."""
-    scene, cam = builtin.cornell_box(width=8, height=8)
+    scene, cam = builtin.cornell_box(width=8, height=8, device="cpu")
     n = 64
     pix = torch.arange(n, dtype=torch.int64)
     stream = SampleStream(0, pix, torch.zeros(n, dtype=torch.int64))
@@ -105,6 +107,77 @@ def test_useful_ray_count():
     cfg = common.RenderConfig(spp=1, max_depth=8)
     _, rays = path.li_with_stats(scene, cam, o, d, stream, cfg)
     assert n < rays.item() <= 2 * 8 * n
+
+
+def test_fused_bigmesh_matches_jax_wavefront():
+    """The big-mesh leg at a small size: displaced_sphere(48, 48) (4,516
+    triangles, BVH attached) through the fused wavefront, against the JAX
+    wavefront with fuse=True from the same numpy geometry. On the CPU both
+    walk the BVH (the JAX package's CPU route). atol 1e-5, no pixel
+    excepted; measured max diff 2.98e-8, 0 edge-flip pixels."""
+    from mitsuba_tpu.models import sensor as jsens
+    from mitsuba_tpu.scene import bvh as jbvh, ir as jir
+    from mitsuba_tpu_torch.ops import brute_kernel, bvh_kernel
+
+    v, f, tm, mats, rad = builtin.displaced_sphere_mesh(48, 48)
+    jscene = jbvh.attach(jir.build_scene(v, f, tm, mats, tri_radiance=rad))
+    jcam = jsens.make_camera(width=16, height=16, **builtin.DISPLACED_SPHERE_CAMERA)
+    assert jscene.num_triangles == 4516
+    cfg = dict(spp=8, max_depth=4, rr_depth=3, seed=0)
+    ref = np.asarray(jax.jit(lambda s, c: jwf.render(
+        s, c, jcom.RenderConfig(**cfg), lanes_per_pixel=4, fuse=True))(jscene, jcam))
+    scene = ir.from_jax(jscene, device="cpu")
+    bvh_kernel.reset_counts()
+    brute_kernel.reset_counts()
+    img = wavefront.render(scene, sensor.camera_from_jax(jcam, device="cpu"),
+                           common.RenderConfig(**cfg), lanes_per_pixel=4, fuse=True)
+    assert np.abs(img.numpy() - ref).max() <= 1e-5, np.abs(img.numpy() - ref).max()
+    assert ref.mean() > 0.005
+    assert bvh_kernel.PLAIN_CALLS["closest"] > 0 and bvh_kernel.PLAIN_CALLS["any_hit"] > 0
+    assert sum(brute_kernel.PLAIN_CALLS.values()) == 0
+
+
+def test_compaction_ladder_invariant():
+    """The compaction ladder reproduces the plain regenerative render, and
+    the fused (deferred-shadow) estimator equals the unfused one: same
+    samples, only the film's summation order differs (a port of
+    tests/test_wavefront.py's test of the same name)."""
+    scene, cam = builtin.cornell_box(width=32, height=32, device="cpu")
+    cfg = common.RenderConfig(spp=8, max_depth=4, rr_depth=3, seed=3)
+    a = wavefront.render(scene, cam, cfg, lanes_per_pixel=4, compact=False, fuse=True)
+    b = wavefront.render(scene, cam, cfg, lanes_per_pixel=4, compact=True, fuse=True)
+    c = wavefront.render(scene, cam, cfg, lanes_per_pixel=4)
+    assert (a - b).abs().max() < 1e-5
+    assert (a - c).abs().max() < 1e-5
+
+
+def test_compact_raises_where_it_cannot_act():
+    """compact needs fuse and >= 4096 lanes; without them it raises rather
+    than doing nothing (ROADMAP C5)."""
+    scene, cam = builtin.cornell_box(width=32, height=32, device="cpu")
+    cfg = common.RenderConfig(spp=4, max_depth=2, seed=0)
+    with pytest.raises(ValueError, match="compact"):
+        wavefront.render(scene, cam, cfg, lanes_per_pixel=4, compact=True)
+    with pytest.raises(ValueError, match="compact"):
+        wavefront.render(scene, cam, cfg, lanes_per_pixel=2, compact=True, fuse=True)
+
+
+def test_bvh_render_matches_brute():
+    """sphere_shadow(24, 24) renders the same through the BVH twin as
+    through brute force (measured: equal to the last bit)."""
+    from mitsuba_tpu_torch.ops import brute_kernel, bvh_kernel
+
+    scene_bvh, cam, _ = builtin.sphere_shadow(24, 24, width=16, height=16,
+                                              attach_bvh=True, device="cpu")
+    scene, _, _ = builtin.sphere_shadow(24, 24, width=16, height=16, device="cpu")
+    cfg = common.RenderConfig(spp=16, max_depth=4, rr_depth=3, seed=1)
+    bvh_kernel.reset_counts()
+    brute_kernel.reset_counts()
+    img = wavefront.render(scene_bvh, cam, cfg)
+    assert bvh_kernel.PLAIN_CALLS["closest"] > 0 and brute_kernel.PLAIN_CALLS["closest"] == 0
+    ref = wavefront.render(scene, cam, cfg)
+    assert torch.allclose(img, ref, atol=1e-5), (img - ref).abs().max()
+    assert img.mean() > 0.05
 
 
 def test_port_imports_no_jax():
