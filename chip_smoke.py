@@ -13,6 +13,13 @@ phase prints one line; any failure raises, so the exit code is non-zero.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
+
+Times in the kernels' JSON line: `ms` is the kernel's own device time per
+launch (torch.profiler's records of the kernel's symbol, `device_ms`);
+`call_ms` is one wrapper call timed by CUDA events (`call_ms`), the host's
+checks, allocations and ctypes launch included, so where the kernel is
+shorter than the host's work it times the host; `plain_ms` is the plain
+PyTorch version's call. `launches` is the count from the kernel's path.
 """
 from __future__ import annotations
 
@@ -53,21 +60,27 @@ BIGMESH_MEAN_RTOL = 0.01
 # kernel against brute force on the big mesh: tests/test_bvh.py:163-169
 BVH_AGREE = 0.998
 BVH_T_RTOL, BVH_T_ATOL = 1e-4, 1e-5
-# (source, TPU kernel replaced, the path whose run counts its launches):
-# the Cornell headline render; the big-mesh render (wavefront, fused and
-# compacted: the fused entry only); the big-mesh useful-ray count pass
-# (path.li_with_stats, unfused: the closest and any-hit entries)
+# (source, TPU kernel replaced, the path whose run counts its launches, the
+# CUDA symbol the device timer reads): the Cornell headline render; the
+# big-mesh render (wavefront, fused and compacted: the fused entry only);
+# the big-mesh useful-ray count pass (path.li_with_stats, unfused: the
+# closest and any-hit entries)
 KERNELS = {
     "brute_closest": ("mitsuba_tpu_torch/csrc/brute_intersect.cu",
-                      "mitsuba_tpu/ops/pallas_intersect.py:41", "headline_render"),
+                      "mitsuba_tpu/ops/pallas_intersect.py:41", "headline_render",
+                      "closest_kernel"),
     "brute_any_hit": ("mitsuba_tpu_torch/csrc/brute_intersect.cu",
-                      "mitsuba_tpu/ops/pallas_intersect.py:41", "headline_render"),
+                      "mitsuba_tpu/ops/pallas_intersect.py:41", "headline_render",
+                      "any_hit_kernel"),
     "bvh_closest": ("mitsuba_tpu_torch/csrc/bvh_intersect.cu",
-                    "mitsuba_tpu/ops/binned_intersect.py:358", "bigmesh_count_pass"),
+                    "mitsuba_tpu/ops/binned_intersect.py:358", "bigmesh_count_pass",
+                    "walk_kernel"),
     "bvh_any_hit": ("mitsuba_tpu_torch/csrc/bvh_intersect.cu",
-                    "mitsuba_tpu/ops/binned_intersect.py:358", "bigmesh_count_pass"),
+                    "mitsuba_tpu/ops/binned_intersect.py:358", "bigmesh_count_pass",
+                    "walk_kernel"),
     "bvh_closest_and_any": ("mitsuba_tpu_torch/csrc/bvh_intersect.cu",
-                            "mitsuba_tpu/ops/binned_intersect.py:358", "bigmesh_render"),
+                            "mitsuba_tpu/ops/binned_intersect.py:358", "bigmesh_render",
+                            "walk_kernel"),
 }
 # Bounds: the H100 SXM's published peaks (HBM3; float32 outside the tensor
 # cores, 67 TFLOP/s counting an FMA as two operations, so 33.5e12 float32
@@ -90,8 +103,10 @@ def say(phase, **fields):
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
 
 
-def time_ms(fn, dev, reps=10):
-    """Mean milliseconds of fn() on the card (CUDA events), after a warm-up."""
+def call_ms(fn, dev, reps=10):
+    """Mean milliseconds of one call of fn() (CUDA events around reps calls,
+    after a warm-up): the wrapper's host work and the device's together.
+    Where the host is slower than the kernel, this times the host."""
     import torch
 
     fn()
@@ -104,6 +119,37 @@ def time_ms(fn, dev, reps=10):
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, symbol, dev, reps=20):
+    """Mean device milliseconds of one launch of the kernel whose symbol
+    contains `symbol`: torch.profiler's CUDA kernel records of reps calls
+    of fn() (after a warm-up), their summed device time over their count.
+    The profiler may drop a record at the edge of its window (seen: 19 of
+    20) or, rarely, a whole window (seen: 0 of 50), so the mean is over the
+    records it kept, and a window that kept fewer than half is taken again,
+    up to three times; then, or with more than one record per call, it
+    raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    cuda = torch.autograd.DeviceType.CUDA
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize(dev)
+        mine = [e for e in prof.key_averages()
+                if e.device_type == cuda and symbol in e.key]
+        count = sum(e.count for e in mine)
+        if reps // 2 <= count <= reps:
+            return sum(e.device_time_total for e in mine) / 1e3 / count
+        if count > reps:
+            break
+    raise AssertionError(f"profiler saw {count} launches of {symbol!r} in {reps} "
+                         f"calls: {[e.key for e in mine]}")
 
 
 def random_scene(n_tris, seed, dev):
@@ -167,20 +213,27 @@ def compare_kernels(name, scene, o, d, limit, plain_reps, kernel_reps):
     hit = t_p < 1e30
     t_err = float((t_k - t_p)[hit].abs().max()) if bool(hit.any()) else 0.0
     blocked_err = float((blocked.int() - pblocked.int()).abs().max())
+    def closest():
+        return bk.closest_key(tris, o, d, tmax)
+
+    def any_hit():
+        return bk.any_hit(tris, scene.tri_opaque, o, d, limit)
+
     times = {
-        "closest_ms": time_ms(lambda: bk.closest_key(tris, o, d, tmax), dev, kernel_reps),
-        "closest_plain_ms": time_ms(
+        "closest_ms": device_ms(closest, KERNELS["brute_closest"][3], dev, kernel_reps),
+        "closest_call_ms": call_ms(closest, dev, kernel_reps),
+        "closest_plain_ms": call_ms(
             lambda: bk.closest_key_plain(tris, o, d, tmax), dev, plain_reps),
-        "any_hit_ms": time_ms(
-            lambda: bk.any_hit(tris, scene.tri_opaque, o, d, limit), dev, kernel_reps),
-        "any_hit_plain_ms": time_ms(
+        "any_hit_ms": device_ms(any_hit, KERNELS["brute_any_hit"][3], dev, kernel_reps),
+        "any_hit_call_ms": call_ms(any_hit, dev, kernel_reps),
+        "any_hit_plain_ms": call_ms(
             lambda: bk.any_hit_plain(tris, scene.tri_opaque, o, d, limit), dev, plain_reps),
     }
     say("kernel", scene=name, tris=scene.num_triangles, rays=n,
         hit_frac=round(float(hit.float().mean()), 4),
         blocked_frac=round(float(pblocked.float().mean()), 4),
         key_mismatch=bad_key, blocked_mismatch=bad_blocked, t_max_abs_err=t_err,
-        **{k: round(v, 4) for k, v in times.items()})
+        **{k: round(v, 5) for k, v in times.items()}, config=dict(bk.LAST_CONFIG))
     if bad_key or bad_blocked:
         raise AssertionError(f"kernel and plain version differ on {name}: "
                              f"{bad_key} keys, {bad_blocked} blocked flags")
@@ -218,6 +271,10 @@ def phase_kernels(dev, n_rays, headline_rays):
     """Kernel against plain version on the card at 32, 1,156 and 4,096
     triangles, and at the main path's shape (the headline's Cornell batch):
     (key, chunk_base) and blocked must agree bit for bit."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import intersect
     from mitsuba_tpu_torch.scene import builtin
 
     cornell = builtin.cornell_box(device=dev)[0]
@@ -238,13 +295,173 @@ def phase_kernels(dev, n_rays, headline_rays):
         if main_shape:
             # the JSON line's times are those at the main path's shape
             (c_ms, c_by), (a_ms, a_by) = brute_bounds(scene, o, d, limit)
-            closest.update(ms=times["closest_ms"], plain_ms=times["closest_plain_ms"],
-                           bound_ms=c_ms, bound_by=c_by, library_ms=None)
-            any_hit.update(ms=times["any_hit_ms"], plain_ms=times["any_hit_plain_ms"],
-                           bound_ms=a_ms, bound_by=a_by, library_ms=None)
+            for entry, k, b_ms, b_by in ((closest, "closest", c_ms, c_by),
+                                         (any_hit, "any_hit", a_ms, a_by)):
+                entry.update(ms=times[f"{k}_ms"], call_ms=times[f"{k}_call_ms"],
+                             plain_ms=times[f"{k}_plain_ms"], bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None)
+            # the launch's fixed cost: the same kernels on one warp of rays
+            tris = intersect.tri_soa(scene)
+            o1, d1, l1 = o[:32].contiguous(), d[:32].contiguous(), limit[:32].contiguous()
+            floor = {
+                "closest_floor_ms": device_ms(
+                    lambda: bk.closest_key(tris, o1, d1, l1), KERNELS["brute_closest"][3], dev),
+                "any_hit_floor_ms": device_ms(
+                    lambda: bk.any_hit(tris, scene.tri_opaque, o1, d1, l1),
+                    KERNELS["brute_any_hit"][3], dev)}
+            closest, any_hit = report["brute_closest"], report["brute_any_hit"]
+            closest["floor_ms"], any_hit["floor_ms"] = floor.values()
+            # every lane count at this shape, against the launcher's choice
+            tmax = torch.full((n,), 3.0e38, device=dev)
+            sweep = {f"{entry}_lanes_ms": {
+                lanes: round(device_ms(fn(lanes), KERNELS[f"brute_{entry}"][3], dev), 5)
+                for lanes in bk.LANES} for entry, fn in (
+                    ("closest", lambda ln: lambda: bk.closest_key(tris, o, d, tmax, lanes=ln)),
+                    ("any_hit", lambda ln: lambda: bk.any_hit(tris, scene.tri_opaque, o, d,
+                                                             limit, lanes=ln)))}
             say("kernel_bound", scene=name, rays=n, closest_bound_ms=c_ms,
-                closest_bound_by=c_by, any_hit_bound_ms=a_ms, any_hit_bound_by=a_by)
+                closest_bound_by=c_by, any_hit_bound_ms=a_ms, any_hit_bound_by=a_by,
+                **{k: round(v, 5) for k, v in floor.items()}, **sweep)
     return report
+
+
+def tri_rows(n_tris, seed):
+    """(9, T) float32 rows p0 e1 e2 of random triangles in [-1, 1]^3."""
+    rs = np.random.RandomState(seed)
+    p0 = rs.uniform(-1, 1, (n_tris, 3))
+    e = rs.uniform(-0.3, 0.3, (n_tris, 6))
+    return np.concatenate([p0, e], 1).T.astype(np.float32)
+
+
+def rays_at(rows, n, seed):
+    """n rays from [-1.2, 1.2]^3: even ones aimed at a random point of a
+    random triangle of the (9, T) rows, odd ones in random directions;
+    limits in [0.05, 2)."""
+    rs = np.random.RandomState(seed)
+    o = rs.uniform(-1.2, 1.2, (n, 3))
+    pick = rs.randint(0, rows.shape[1], n)
+    b = rs.dirichlet((1.0, 1.0, 1.0), n)
+    target = rows[0:3, pick].T + b[:, 1:2] * rows[3:6, pick].T + b[:, 2:3] * rows[6:9, pick].T
+    d = np.where(np.arange(n)[:, None] % 2 == 0, target - o, rs.normal(size=(n, 3)))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d, rs.uniform(0.05, 2.0, n)
+
+
+def phase_kernel_edges(dev):
+    """The edges of the redesigned kernels, each against its plain twin bit
+    for bit. B1: T of 1, 31, 32, 33, 1,156, 4,096 and 7,000 (above one
+    tile of shared memory: the tiled loop), 10,007 rays (a multiple of no
+    block and no lane count), opacity masks with holes, every lane count
+    and the launcher's own choice; and triangles repeated in three chunks,
+    whose keys tie, where the lowest chunk must win. B2: grazing rays along
+    the displaced sphere (deep stacks), a quarter of each class retired,
+    all three entries."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import builtin
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    n = 10_007
+    cases = [(f"random_{t}", tri_rows(t, t), t) for t in (1, 31, 32, 33, 1156, 4096, 7000)]
+    dup = tri_rows(128, 7)
+    cases.append(("repeated_3x128", np.concatenate([dup, dup, dup], 1), 128))
+    bad, tiles = {}, {}
+    for name, rows, seed in cases:
+        tris = f32(rows)
+        o, d, limit = (f32(a) for a in rays_at(rows, n, seed))
+        tmax = torch.full((n,), 3.0e38, device=dev)
+        rs = np.random.RandomState(seed + 1)
+        opaque = torch.as_tensor(rs.uniform(size=rows.shape[1]) < 0.6, device=dev)
+        pkey, pbase = bk.closest_key_plain(tris, o, d, tmax)
+        pblocked = bk.any_hit_plain(tris, opaque, o, d, limit)
+        for lanes in (None, *bk.LANES):
+            key, base = bk.closest_key(tris, o, d, tmax, lanes=lanes)
+            blocked = bk.any_hit(tris, opaque, o, d, limit, lanes=lanes)
+            miss = (int(((key != pkey) | (base != pbase)).sum())
+                    + int((blocked != pblocked).sum()))
+            bad[f"{name}/{lanes or 'auto'}"] = miss
+            tiles[name] = bk.LAST_CONFIG["closest"]["tile"]
+        hits = (pkey & ~127) != 0x7F000000
+        if name.startswith("repeated") and (not bool(hits.any()) or bool(pbase[hits].any())):
+            raise AssertionError("repeated triangles: the first chunk did not win every tie")
+    say("kernel_edges", rays=n, mismatches=sum(bad.values()), cases=len(bad), tiles=tiles)
+    if any(bad.values()) or tiles["random_7000"] >= 7000:
+        raise AssertionError(f"brute kernel edges: {bad}, tiles {tiles}")
+
+    scene, _ = builtin.displaced_sphere(device=dev)
+    closest, shadow = grazing_rays(65_536, 5, dev)
+    compare_bvh("grazing", scene.bvh, closest, shadow)
+
+
+def grazing_rays(n, seed, dev):
+    """Rays that skim the displaced sphere (radius 1 +- 0.15 about the
+    origin): from 3 units back along a tangent, at a height of 0.95-1.15
+    over a random point of the unit sphere, along the tangent. Returns
+    (closest, shadow) batches (o, d, tmax / distance); a quarter of each
+    retired (0)."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    u = rs.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    t = np.cross(u, rs.normal(size=(n, 3)))
+    t /= np.linalg.norm(t, axis=-1, keepdims=True)
+    o = rs.uniform(0.95, 1.15, (n, 1)) * u - 3.0 * t
+    k = np.arange(n)
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+
+    closest = (f32(o), f32(t), f32(np.where(k % 4 == 0, 0.0, 3.0e37)))
+    shadow = (f32(o[::-1]), f32(t[::-1]), f32(np.where(k % 4 == 1, 0.0, 6.0)))
+    return closest, shadow
+
+
+def phase_crossover(dev):
+    """Brute force (B1) against the BVH walk (B2) on the same meshes and
+    the render's batches (65,536 bounce rays, closest; 65,536 shadow rays,
+    any-hit): device ms per launch on the displaced sphere at 172, 356,
+    724, 4,516 and 12,100 triangles, around and below
+    trace.BRUTE_MAX_TRIS (4,096), which this measures and does not change.
+    The two must agree at tests/test_bvh.py's bars."""
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.ops import bvh_traverse as bt
+    from mitsuba_tpu_torch.ops import intersect
+    from mitsuba_tpu_torch.scene import builtin
+
+    rows = []
+    for nu, nv in ((12, 8), (16, 12), (24, 16), (48, 48), (96, 64)):
+        scene, cam = builtin.displaced_sphere(nu, nv, device=dev)
+        _, (o, d, tmax), (o_s, d_s, dist) = render_rays(scene, cam, 4, 2, dev)
+        limit = (dist * (1.0 - 1e-3)).contiguous()
+        tris = intersect.tri_soa(scene)
+        ms = {
+            "b1_closest_ms": device_ms(lambda: bk.closest_key(tris, o, d, tmax),
+                                       KERNELS["brute_closest"][3], dev),
+            "b1_any_hit_ms": device_ms(
+                lambda: bk.any_hit(tris, scene.tri_opaque, o_s, d_s, limit),
+                KERNELS["brute_any_hit"][3], dev),
+            "b2_closest_ms": device_ms(lambda: bvk.closest_key(scene.bvh, o, d, tmax),
+                                       KERNELS["bvh_closest"][3], dev),
+            "b2_any_hit_ms": device_ms(lambda: bvk.blocked(scene.bvh, o_s, d_s, limit),
+                                       KERNELS["bvh_any_hit"][3], dev),
+        }
+        ref = intersect._finish_closest(scene, *bk.closest_key(tris, o, d, tmax), o.shape[0])
+        its = bt.decode(scene.bvh, *bvk.closest_key(scene.bvh, o, d, tmax))
+        agree = min(float((ref.valid == its.valid).float().mean()),
+                    float((bk.any_hit(tris, scene.tri_opaque, o_s, d_s, limit)
+                           == bvk.blocked(scene.bvh, o_s, d_s, limit)).float().mean()))
+        say("crossover", tris=scene.num_triangles, rays=o.shape[0],
+            **{k: round(v, 5) for k, v in ms.items()}, agree=agree,
+            b1_config=dict(bk.LAST_CONFIG))
+        if agree <= BVH_AGREE:
+            raise AssertionError(f"crossover: B1 and B2 agree on {agree} of the rays")
+        rows.append((scene.num_triangles, ms))
+    return rows
 
 
 def check_golden(img, ref):
@@ -496,38 +713,41 @@ def compare_bvh(name, bvh, closest, shadow, reps=0):
     times = {}
     if reps:
         dev = o.device
-        times = {
-            "bvh_closest": (time_ms(lambda: bvk.closest_key(bvh, o, d, tmax), dev, reps),
-                            time_ms(lambda: bt.walk(bvh, o, d, tmax, n_c), dev, 2)),
-            "bvh_any_hit": (time_ms(lambda: bvk.blocked(bvh, o_s, d_s, limit), dev, reps),
-                            time_ms(lambda: bt.walk(bvh, o_s, d_s, limit, 0), dev, 2)),
+        entries = {
+            "bvh_closest": (lambda: bvk.closest_key(bvh, o, d, tmax),
+                            lambda: bt.walk(bvh, o, d, tmax, n_c)),
+            "bvh_any_hit": (lambda: bvk.blocked(bvh, o_s, d_s, limit),
+                            lambda: bt.walk(bvh, o_s, d_s, limit, 0)),
             "bvh_closest_and_any": (
-                time_ms(lambda: bvk.closest_and_any_key(bvh, o, d, tmax, o_s, d_s, limit),
-                        dev, reps),
-                time_ms(lambda: bt.walk(bvh, torch.cat([o, o_s]), torch.cat([d, d_s]),
-                                        torch.cat([tmax, limit]), n_c), dev, 2)),
+                lambda: bvk.closest_and_any_key(bvh, o, d, tmax, o_s, d_s, limit),
+                lambda: bt.walk(bvh, torch.cat([o, o_s]), torch.cat([d, d_s]),
+                                torch.cat([tmax, limit]), n_c)),
         }
+        # (device ms, call ms, plain ms) of each entry
+        times = {k: (device_ms(fn, KERNELS[k][3], dev, reps), call_ms(fn, dev, reps),
+                     call_ms(plain, dev, 2)) for k, (fn, plain) in entries.items()}
     say("bvh_kernel", rays=name, closest_rays=n_c, shadow_rays=n_s,
         hit_frac=round(float(hit.float().mean()), 4),
         blocked_frac=round(float(pblocked.float().mean()), 4),
         t_max_abs_err=t_err, **bad, walk_work=work,
-        **{f"{k}_ms": round(v[0], 4) for k, v in times.items()},
-        **{f"{k}_plain_ms": round(v[1], 2) for k, v in times.items()})
+        **{f"{k}_ms": round(v[0], 5) for k, v in times.items()},
+        **{f"{k}_call_ms": round(v[1], 5) for k, v in times.items()},
+        **{f"{k}_plain_ms": round(v[2], 2) for k, v in times.items()})
     if any(bad.values()):
         raise AssertionError(f"bvh kernel and plain walk differ on {name}: {bad}")
     return errs, times, work
 
 
 def bvh_bounds(bvh, n_c, n_s, work):
-    """Bounds of the three BVH entries: the node and leaf tables read once
-    plus rays in and results out, against the slab tests and triangle
-    tests this run's walk made (the twin's counts)."""
-    tables = (bvh.nodes.numel() * 4 + bvh.leaf_tris.numel() * 4
+    """Bounds of the three BVH entries: the wide-node and leaf tables read
+    once plus rays in and results out, against the child box tests and
+    triangle tests this run's walk made (the twin's counts)."""
+    tables = (bvh.wide.numel() * 4 + bvh.leaf_tris.numel() * 4
               + bvh.leaf_opaque.numel())
 
     def one(w, n_bytes):
         return bound(tables + n_bytes,
-                     w.get("visits", 0) * SLAB_INSTR + w.get("tri_tests", 0) * TRI_INSTR)
+                     w.get("box_tests", 0) * SLAB_INSTR + w.get("tri_tests", 0) * TRI_INSTR)
 
     return {"bvh_closest": one(work["closest"], n_c * (RAY_BYTES + 8)),
             "bvh_any_hit": one(work["any_hit"], n_s * (RAY_BYTES + 1)),
@@ -583,11 +803,12 @@ def phase_bvh_kernel(dev):
     say("bvh_bound", rays=n, **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
         **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
         **{f"{k}_{w}": work[k.replace("bvh_", "")].get(w, 0)
-           for k in bounds for w in ("visits", "tri_tests")})
+           for k in bounds for w in ("visits", "box_tests", "tri_tests", "max_stack")},
+        grid=dict(bvk.LAST_GRID))
     report = {}
     for k in bounds:
         report[k] = {"max_abs_err": max(errs[k], errs_r[k], errs_c[k]),
-                     "ms": times[k][0], "plain_ms": times[k][1],
+                     "ms": times[k][0], "call_ms": times[k][1], "plain_ms": times[k][2],
                      "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
                      "library_ms": None}
     return report
@@ -676,9 +897,16 @@ def phase_bigmesh(dev, lanes=4):
     return {"bigmesh_render": launches, "bigmesh_count_pass": count_launches}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and run the kernel phases only (no renders); "
+                         "prints no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
               file=sys.stderr)
@@ -699,9 +927,16 @@ def main() -> int:
     libs = _build.build_all(["brute_intersect", "bvh_intersect"])
     say("build", libraries=[lib.name for lib in libs],
         seconds=round(time.perf_counter() - t0, 3))
+    for lib in libs:
+        say("ptxas", library=lib.name.split("-")[0], info=_build.build_log(lib))
 
     report = phase_kernels(dev, KERNEL_RAYS, 256 * 256)
     report.update(phase_bvh_kernel(dev))
+    phase_kernel_edges(dev)
+    phase_crossover(dev)
+    if args.kernels_only:
+        print(json.dumps({"kernels_only": report}), flush=True)
+        return 0
     phase_golden(dev)
     brute = phase_headline(dev, 256, 256)
     phase_profile("headline", *cornell_headline(dev, 256, 4))
@@ -712,7 +947,7 @@ def main() -> int:
     for path, counts in phase_bigmesh(dev).items():
         paths[path] = {f"bvh_{k}": v for k, v in counts.items()}
     kernels = []
-    for name, (source, replaces, path) in KERNELS.items():
+    for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": paths[path][name],
                         **report[name], "path": path,

@@ -18,8 +18,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 # sm_90a: Hopper. --fmad=false keeps a*b+c as two roundings, so the kernels
 # round like their plain PyTorch versions; no fast math, so 1.0f/x is IEEE.
+# -Xptxas=-v reports each kernel's registers, spills and shared memory,
+# kept beside the library (`build_log`).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def nvcc() -> str:
@@ -53,11 +55,22 @@ def build(name: str) -> Path:
             raise RuntimeError(
                 f"nvcc failed ({res.returncode}) building {src.name}:\n"
                 f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        lib.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, lib)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return lib
+
+
+def build_log(lib: Path) -> list[str]:
+    """ptxas's resource lines for a built library: per kernel, the entry
+    name and its registers, spills, stack and shared memory."""
+    log = lib.with_suffix(".log")
+    lines = log.read_text().splitlines() if log.exists() else []
+    return [ln.split(": ", 1)[-1].strip() for ln in lines
+            if "Compiling entry function" in ln or "registers" in ln
+            or "spill" in ln]
 
 
 def build_all(names) -> list[Path]:

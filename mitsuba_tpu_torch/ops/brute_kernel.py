@@ -9,12 +9,16 @@ f32, in the operation order of the JAX package's VPU form
 (`intersect._chunk_hits`).
 
 What bounds it on Hopper: f32 ALU work on O(N*T) triangle tests, about 40
-flops per pair, with the division as the costliest single op. One thread
-owns one ray and keeps its running key in a register; a block stages the
-triangles through shared memory in tiles (9 floats per triangle, SoA), so
-device memory is read once per block rather than once per ray. The any-hit
-entry stops testing once its ray is blocked, and the block leaves the
-tile loop when every ray in it is.
+flops per pair, with the division as the costliest single op. A block
+stages the whole scene (9 floats per triangle, SoA, plus the opacity
+bytes) in dynamic shared memory once, or, above ~5,900 triangles, in tiles
+as large as shared memory allows; its rays come in through shared memory
+with coalesced loads. Each ray is split over L lanes of a warp (1, 2, 4 or
+8, chosen by the launcher so that the grid fills the card), each lane
+scanning every L-th triangle in index order; the lanes combine by the
+lexicographic min of (key, chunk_base), which is exact (see the .cu note).
+The any-hit entry ORs a ray's lanes with a warp ballot and a warp leaves
+once every ray in it is blocked.
 
 Contract shared by both routes (the Pallas kernel's):
   closest_key(tris, o, d, tmax) -> (key int32 (N,), chunk_base int32 (N,))
@@ -27,7 +31,9 @@ so it rounds each op as the plain version does and the two agree bit for
 bit.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. KERNEL_LAUNCHES and PLAIN_CALLS count each route per entry point.
+raises. KERNEL_LAUNCHES and PLAIN_CALLS count each route per entry point;
+LAST_CONFIG holds each entry's last launch configuration (lanes per ray,
+block size, triangles per tile, shared memory bytes).
 """
 from __future__ import annotations
 
@@ -40,6 +46,9 @@ from . import intersect as I
 
 KERNEL_LAUNCHES = {"closest": 0, "any_hit": 0}
 PLAIN_CALLS = {"closest": 0, "any_hit": 0}
+LAST_CONFIG = {"closest": None, "any_hit": None}
+# lanes per ray the kernel takes; None lets its launcher choose
+LANES = (1, 2, 4, 8)
 
 
 def reset_counts():
@@ -123,21 +132,33 @@ def _lib():
 
     lib = ctypes.CDLL(str(_build.build("brute_intersect")))
     P, I32 = ctypes.c_void_p, ctypes.c_int
-    lib.brute_closest.argtypes = [P, P, P, P, I32, I32, P, P, P]
+    lib.brute_closest.argtypes = [P, P, P, P, I32, I32, P, P, I32, P, P]
     lib.brute_closest.restype = I32
-    lib.brute_any_hit.argtypes = [P, P, P, P, P, I32, I32, P, P]
+    lib.brute_any_hit.argtypes = [P, P, P, P, P, I32, I32, P, I32, P, P]
     lib.brute_any_hit.restype = I32
     return lib
 
 
-def _raise_on(rc, name):
+def _launch(entry, *args, dev, lanes):
+    """Launch one entry on the current stream; raise on a refused launch
+    (shared memory, block size) or a bad lane count."""
+    if lanes is not None and lanes not in LANES:
+        raise ValueError(f"brute kernel: lanes must be one of {LANES}, got {lanes}")
+    config = (ctypes.c_int * 4)()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        KERNEL_LAUNCHES[entry] += 1
+        rc = getattr(_lib(), "brute_" + entry)(*args, lanes or 0, config, stream)
     if rc != 0:
-        raise RuntimeError(f"brute kernel {name}: CUDA error {rc} at launch")
+        raise RuntimeError(f"brute kernel {entry}: CUDA error {rc} at launch")
+    LAST_CONFIG[entry] = dict(zip(("lanes", "block", "tile", "smem_bytes"), config))
 
 
-def closest_key(tris, o, d, tmax):
+def closest_key(tris, o, d, tmax, lanes=None):
     """Packed closest-hit keys of rays (o, d) with t < tmax against the
-    (9, T) triangle rows. Returns (key, chunk_base), each int32 (N,)."""
+    (9, T) triangle rows. Returns (key, chunk_base), each int32 (N,).
+    `lanes` (1, 2, 4 or 8) fixes the kernel's lanes per ray; by default
+    its launcher chooses."""
     if o.device.type == "cpu":
         PLAIN_CALLS["closest"] += 1
         return closest_key_plain(tris, o, d, tmax)
@@ -147,18 +168,12 @@ def closest_key(tris, o, d, tmax):
     base = torch.empty((n,), dtype=torch.int32, device=o.device)
     if n == 0:
         return key, base
-    lib = _lib()
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        KERNEL_LAUNCHES["closest"] += 1
-        rc = lib.brute_closest(o.data_ptr(), d.data_ptr(), tmax.data_ptr(),
-                               tris.data_ptr(), n, tris.shape[1],
-                               key.data_ptr(), base.data_ptr(), stream)
-    _raise_on(rc, "closest")
+    _launch("closest", o.data_ptr(), d.data_ptr(), tmax.data_ptr(), tris.data_ptr(),
+            n, tris.shape[1], key.data_ptr(), base.data_ptr(), dev=o.device, lanes=lanes)
     return key, base
 
 
-def any_hit(tris, opaque, o, d, limit):
+def any_hit(tris, opaque, o, d, limit, lanes=None):
     """True where an opaque triangle is hit with SHADOW_EPS < t < limit."""
     if o.device.type == "cpu":
         PLAIN_CALLS["any_hit"] += 1
@@ -168,12 +183,7 @@ def any_hit(tris, opaque, o, d, limit):
     blocked = torch.empty((n,), dtype=torch.bool, device=o.device)
     if n == 0:
         return blocked
-    lib = _lib()
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        KERNEL_LAUNCHES["any_hit"] += 1
-        rc = lib.brute_any_hit(o.data_ptr(), d.data_ptr(), limit.data_ptr(),
-                               tris.data_ptr(), opaque.data_ptr(), n,
-                               tris.shape[1], blocked.data_ptr(), stream)
-    _raise_on(rc, "any_hit")
+    _launch("any_hit", o.data_ptr(), d.data_ptr(), limit.data_ptr(), tris.data_ptr(),
+            opaque.data_ptr(), n, tris.shape[1], blocked.data_ptr(), dev=o.device,
+            lanes=lanes)
     return blocked

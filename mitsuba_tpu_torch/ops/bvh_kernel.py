@@ -8,14 +8,18 @@ bf16x3 GEMM tiles over Morton clusters, with a noise band, top-2
 candidates and an exact f32 re-test after it, because f32 on the MXU is
 emulated and per-lane gathers are slow there; its ray sort, sub-row mask,
 tile list and chunking served the same tiles. None of that is carried
-over. `csrc/bvh_intersect.cu` walks the threaded BVH of `scene/bvh.py`,
-one ray per thread, in exact f32, so there are no candidates to re-test.
+over. `csrc/bvh_intersect.cu` walks the 4-wide BVH of `scene/bvh.py`
+(`wide`, collapsed from the binary heap) one ray per thread, in exact
+f32, so there are no candidates to re-test.
 
 What bounds it on Hopper: the latency of the dependent node and leaf loads
-along each ray's walk (two 16-byte loads per node, nine per leaf), not
-bytes or flops; the tables sit in L2. Its design: packed aligned records
-read through the read-only cache, and many warps in flight. `closest_and_any`
-is one launch over [closest rays | shadow rays], the wavefront's fused step.
+along each ray's walk, and the divergence of a warp's rays; not bytes or
+flops (the tables sit in L2). Its design: one 128-byte record per wide
+node (four child boxes tested side by side), nearest-first traversal with
+a per-thread stack and the closest hit's cull at every pop, and persistent
+warps that take rays from an atomic counter and refill idle lanes.
+`closest_and_any` is one launch over [closest rays | shadow rays], the
+wavefront's fused step.
 
 Contract of both routes:
   closest_key(bvh, o, d, tmax) -> (key int32 (N,), base int32 (N,))
@@ -27,7 +31,7 @@ the two agree bit for bit.
 
 A CPU tensor takes the plain version (`bvh_traverse.walk`); a CUDA tensor
 launches the kernel or raises. KERNEL_LAUNCHES and PLAIN_CALLS count each
-route per entry point.
+route per entry point; LAST_GRID holds each entry's last grid (blocks).
 """
 from __future__ import annotations
 
@@ -42,6 +46,9 @@ from . import intersect as I
 
 KERNEL_LAUNCHES = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
 PLAIN_CALLS = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
+LAST_GRID = {"closest": None, "any_hit": None, "closest_and_any": None}
+# stack entries of the kernel's walk (csrc/bvh_intersect.cu STACK)
+KERNEL_STACK = 32
 
 
 def reset_counts():
@@ -57,10 +64,10 @@ def _lib():
 
     lib = ctypes.CDLL(str(_build.build("bvh_intersect")))
     P, I32 = ctypes.c_void_p, ctypes.c_int
-    tables = [P, P, P, I32, I32]   # nodes, leaf_tris, leaf_opaque, n_internal, cap
-    lib.bvh_closest.argtypes = [P, P, P, I32, *tables, P, P, P]
-    lib.bvh_any_hit.argtypes = [P, P, P, I32, *tables, P, P]
-    lib.bvh_closest_and_any.argtypes = [P, P, P, I32, P, P, P, I32, *tables, P, P, P, P]
+    tables = [P, P, P, P]   # wide, leaf_tris, leaf_opaque, counter
+    lib.bvh_closest.argtypes = [P, P, P, I32, *tables, P, P, P, P]
+    lib.bvh_any_hit.argtypes = [P, P, P, I32, *tables, P, P, P]
+    lib.bvh_closest_and_any.argtypes = [P, P, P, I32, P, P, P, I32, *tables, P, P, P, P, P]
     for fn in (lib.bvh_closest, lib.bvh_any_hit, lib.bvh_closest_and_any):
         fn.restype = I32
     return lib
@@ -73,13 +80,16 @@ def _check(bvh, rays):
     if dev.type != "cuda":
         raise ValueError(f"bvh kernel: rays on {dev}, expected a CUDA device")
     if sum(o.shape[0] for _, o, _, _ in rays) >= 2 ** 31 or \
-            bvh.nodes is None or bvh.nodes.shape[0] >= 2 ** 30:
-        raise ValueError("bvh kernel: 2^31 rays or more, 2^30 nodes or more, "
+            bvh.wide is None or bvh.wide.shape[0] >= 2 ** 30:
+        raise ValueError("bvh kernel: 2^31 rays or more, 2^30 wide nodes or more, "
                          "or no kernel tables (scene/bvh.attach builds them)")
-    cap = bvh.leaf_tris.shape[1]
-    tables = (("nodes", bvh.nodes, torch.float32, (bvh.nodes.shape[0], 8)),
-              ("leaf_tris", bvh.leaf_tris, torch.float32, (9, cap)),
-              ("leaf_opaque", bvh.leaf_opaque, torch.bool, (cap,)))
+    if BT.stack_depth(bvh) > KERNEL_STACK:
+        raise ValueError(f"bvh kernel: the walk needs {BT.stack_depth(bvh)} stack "
+                         f"entries, the kernel has {KERNEL_STACK}")
+    n_leaves = bvh.leaf_tris.shape[0]
+    tables = (("wide", bvh.wide, torch.float32, (bvh.wide.shape[0], 32)),
+              ("leaf_tris", bvh.leaf_tris, torch.float32, (n_leaves, 9, 4)),
+              ("leaf_opaque", bvh.leaf_opaque, torch.bool, (4 * n_leaves,)))
     for name, o, d, tm in rays:
         n = o.shape[0]
         tables += ((f"{name} o", o, torch.float32, (n, 3)),
@@ -91,26 +101,28 @@ def _check(bvh, rays):
             raise ValueError(
                 f"bvh kernel: {name} must be a contiguous {dtype} {shape} tensor "
                 f"on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
-    for name, x in (("nodes", bvh.nodes), ("leaf_tris", bvh.leaf_tris),
+    for name, x in (("wide", bvh.wide), ("leaf_tris", bvh.leaf_tris),
                     ("leaf_opaque", bvh.leaf_opaque)):
         if x.data_ptr() % 16:
             raise ValueError(f"bvh kernel: {name} is not 16-byte aligned")
-    if cap % 4:
-        raise ValueError("bvh kernel: leaf slots not a multiple of 4")
 
 
-def _tables(bvh):
-    return (bvh.nodes.data_ptr(), bvh.leaf_tris.data_ptr(), bvh.leaf_opaque.data_ptr(),
-            bvh.n_internal, bvh.leaf_tris.shape[1])
+def _tables(bvh, dev):
+    """The tables' arguments, with a fresh zero ray counter for one launch."""
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return (bvh.wide.data_ptr(), bvh.leaf_tris.data_ptr(), bvh.leaf_opaque.data_ptr(),
+            counter.data_ptr()), counter
 
 
 def _launch(entry, *args, dev):
+    grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
         KERNEL_LAUNCHES[entry] += 1
         fn = getattr(_lib(), "bvh_" + entry)
-        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+        rc = fn(*args, ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bvh kernel {entry}: CUDA error {rc} at launch")
+    LAST_GRID[entry] = grid.value
 
 
 def _empty(n, dtype, dev):
@@ -126,7 +138,8 @@ def closest_key(bvh, o, d, tmax):
     _check(bvh, [("closest", o, d, tmax)])
     n = o.shape[0]
     key, base = _empty(n, torch.int32, o.device), _empty(n, torch.int32, o.device)
-    _launch("closest", o.data_ptr(), d.data_ptr(), tmax.data_ptr(), n, *_tables(bvh),
+    tables, _counter = _tables(bvh, o.device)
+    _launch("closest", o.data_ptr(), d.data_ptr(), tmax.data_ptr(), n, *tables,
             key.data_ptr(), base.data_ptr(), dev=o.device)
     return key, base
 
@@ -139,7 +152,8 @@ def blocked(bvh, o, d, limit):
     _check(bvh, [("shadow", o, d, limit)])
     n = o.shape[0]
     out = _empty(n, torch.bool, o.device)
-    _launch("any_hit", o.data_ptr(), d.data_ptr(), limit.data_ptr(), n, *_tables(bvh),
+    tables, _counter = _tables(bvh, o.device)
+    _launch("any_hit", o.data_ptr(), d.data_ptr(), limit.data_ptr(), n, *tables,
             out.data_ptr(), dev=o.device)
     return out
 
@@ -157,8 +171,9 @@ def closest_and_any_key(bvh, o_c, d_c, tmax_c, o_s, d_s, limit_s):
     dev = o_c.device
     key, base = _empty(n_c, torch.int32, dev), _empty(n_c, torch.int32, dev)
     blk = _empty(n_s, torch.bool, dev)
+    tables, _counter = _tables(bvh, dev)
     _launch("closest_and_any", o_c.data_ptr(), d_c.data_ptr(), tmax_c.data_ptr(), n_c,
-            o_s.data_ptr(), d_s.data_ptr(), limit_s.data_ptr(), n_s, *_tables(bvh),
+            o_s.data_ptr(), d_s.data_ptr(), limit_s.data_ptr(), n_s, *tables,
             key.data_ptr(), base.data_ptr(), blk.data_ptr(), dev=dev)
     return key, base, blk
 

@@ -1,6 +1,7 @@
 """Big-mesh intersection parity: the port's BVH build against the JAX
-package's, its plain BVH walk (the twin of csrc/bvh_intersect.cu) against
-the JAX walk and against the TPU kernel it replaces (binned_intersect, in
+package's, its 4-wide table against the binary heap it collapses, its
+ordered wide walk (the twin of csrc/bvh_intersect.cu) against the JAX
+binary walk and against the TPU kernel it replaces (binned_intersect, in
 Pallas interpret mode), and the fused entry against the separate ones."""
 from unittest import mock
 
@@ -96,7 +97,7 @@ def test_build_bvh_equals_jax(name):
     assert (b.n_internal, b.n_leaves) == (js.bvh.n_internal, js.bvh.n_leaves)
     p0, e1, e2, _ = jbt._leaf_tris(js, js.bvh, jnp.arange(js.bvh.n_leaves))
     rows = np.concatenate([np.asarray(x).reshape(-1, 3) for x in (p0, e1, e2)], 1).T
-    assert np.array_equal(scene.bvh.leaf_tris.numpy(), rows)
+    assert np.array_equal(scene.bvh.leaf_tris.numpy().transpose(1, 0, 2).reshape(9, -1), rows)
     pad = np.asarray(js.bvh.tri_order) < 0
     assert pad.any() and not scene.bvh.leaf_opaque.numpy()[pad].any()
     nodes = scene.bvh.nodes.numpy()
@@ -130,8 +131,12 @@ def test_twin_matches_jax_walk(name):
 
 
 def test_twin_op_by_op_equals_jax_walk():
-    """Run op by op (no XLA fusion), the JAX walk and the twin agree bit
-    for bit: same operations in the same order."""
+    """Against the JAX walk run op by op (no XLA fusion, so no FMA
+    contraction), the twin's results are equal bit for bit: valid, t, prim
+    and blocked. The twin visits the 4-wide tree nearest first and the JAX
+    walk the binary tree left first; each box and triangle test is the same
+    arithmetic, and on these rays no two hits tie in quantised t, so the
+    order changes nothing."""
     js, scene = _scenes("displaced_sphere")
     o, d, limit = chords(js, 32, 2)
     with jax.disable_jit():
@@ -144,6 +149,97 @@ def test_twin_op_by_op_equals_jax_walk():
         assert np.array_equal(np.asarray(getattr(ref, k)), getattr(its, k).numpy()), k
     assert np.array_equal(np.asarray(ref_blocked),
                           bvh_kernel.any_hit(scene, scene.bvh, to, td, tl).numpy())
+
+
+@pytest.mark.parametrize("name", ["grid", "displaced_sphere", "one_leaf", "two_leaves"])
+def test_wide_table_collapses_binary_heap(name):
+    """Every child box of the wide table is its binary node's box bit for
+    bit (the JAX build's arrays): a node's four grandchildren, or the root's
+    two children where the binary depth is odd (the grid: 11 levels; the
+    sphere: 10). Every leaf is referenced exactly once, every wide node but
+    the root exactly once; empty slots carry an inverted box. Trees of one
+    and two leaves too."""
+    if name in ("grid", "displaced_sphere"):
+        js, scene = _scenes(name)
+    else:
+        n_tris = 1 if name == "one_leaf" else 6
+        v = np.random.RandomState(n_tris).uniform(-1, 1, (3 * n_tris, 3)).astype(np.float32)
+        f = np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
+        js = jir.build_scene(v, f, np.zeros(n_tris, np.int32), [{"type": jir.BSDF_DIFFUSE}])
+        js = js.replace(bvh=jbvh.build_bvh(v, f))
+        scene = tir.from_jax(js, device="cpu")
+    b = scene.bvh
+    amin = np.asarray(js.bvh.aabb_min).view(np.int32)
+    amax = np.asarray(js.bvh.aabb_max).view(np.int32)
+    rec = b.wide.numpy().view(np.int32)
+    depth = b.n_leaves.bit_length() - 1
+    assert b.wide_depth == max(1, (depth + 1) // 2) and not rec[:, 28:].any()
+    lo = rec[:, 0:12].reshape(-1, 3, 4).transpose(0, 2, 1)
+    hi = rec[:, 12:24].reshape(-1, 3, 4).transpose(0, 2, 1)
+    ref = rec[:, 24:28]
+    source = {0: 0}        # wide node -> its binary node, found from the root
+    leaves = []
+    for i in range(rec.shape[0]):
+        node = source[i]
+        if depth == 0:
+            kids = [0]
+        elif node == 0 and depth % 2:
+            kids = [1, 2]
+        else:
+            kids = [4 * node + 3 + c for c in range(4)]
+        for c in range(4):
+            r = int(ref[i, c])
+            if c >= len(kids):
+                assert r == tbvh.EMPTY
+                assert (lo[i, c].view(np.float32) == tbvh.BIG).all()
+                assert (hi[i, c].view(np.float32) == -tbvh.BIG).all()
+                continue
+            if r < 0:
+                assert kids[c] - b.n_internal == -1 - r
+                leaves.append(-1 - r)
+            else:
+                assert r not in source and r > i
+                source[r] = kids[c]
+            assert np.array_equal(lo[i, c], amin[kids[c]])
+            assert np.array_equal(hi[i, c], amax[kids[c]])
+    assert sorted(leaves) == list(range(b.n_leaves))
+    assert sorted(source) == list(range(rec.shape[0]))
+
+
+@pytest.mark.parametrize("name", ["one_leaf", "two_leaves", "displaced_sphere"])
+def test_ordered_twin_matches_brute_force(name):
+    """The ordered walk against the JAX brute force (the exact reference
+    both share the key with) on small trees and the sphere, and its work
+    counts: four box tests per wide fetch, a stack within its bound."""
+    from mitsuba_tpu_torch.ops import bvh_traverse as tbt
+
+    if name == "displaced_sphere":
+        js, scene = _scenes(name)
+    else:
+        n_tris = 1 if name == "one_leaf" else 6
+        rs = np.random.RandomState(n_tris)
+        v = rs.uniform(-1, 1, (3 * n_tris, 3)).astype(np.float32)
+        f = np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
+        js = jir.build_scene(v, f, np.zeros(n_tris, np.int32), [{"type": jir.BSDF_DIFFUSE}])
+        js = js.replace(bvh=jbvh.build_bvh(v, f))
+        scene = tir.from_jax(js, device="cpu")
+    o, d, limit = chords(js, 1024, 6)
+    ref = jI.intersect_brute(js, jnp.asarray(o), jnp.asarray(d))
+    ref_blocked = np.asarray(jI.occluded_brute(js, jnp.asarray(o), jnp.asarray(d),
+                                               jnp.asarray(limit)))
+    to, td, tl = _t(o, d, limit)
+    its = bvh_kernel.closest_hit(scene, scene.bvh, to, td)
+    assert np.array_equal(np.asarray(ref.valid), its.valid.numpy())
+    both = its.valid.numpy()
+    assert both.any()
+    assert (np.asarray(ref.prim)[both] == its.prim.numpy()[both]).mean() >= WALK_AGREE
+    np.testing.assert_allclose(its.t.numpy()[both], np.asarray(ref.t)[both], rtol=T_RTOL)
+    blocked = bvh_kernel.any_hit(scene, scene.bvh, to, td, tl).numpy()
+    assert (ref_blocked == blocked).mean() >= WALK_AGREE
+    stats = {}
+    tbt.walk(scene.bvh, to, td, torch.full((1024,), 3e38), 1024, stats)
+    assert stats["box_tests"] == 4 * stats["visits"] and stats["tri_tests"] > 0
+    assert 1 <= stats["max_stack"] <= tbt.stack_depth(scene.bvh)
 
 
 def _interp(fn):

@@ -55,6 +55,70 @@ def test_kernel_equals_plain_on_card(cuda, scene_name):
     assert 0 < int(blocked.sum()) < 50_000
 
 
+def _rows(n_tris, seed):
+    """(9, T) rows p0 e1 e2 of random triangles in [-1, 1]^3."""
+    rs = np.random.RandomState(seed)
+    p0 = rs.uniform(-1, 1, (n_tris, 3))
+    e = rs.uniform(-0.3, 0.3, (n_tris, 6))
+    return np.ascontiguousarray(np.concatenate([p0, e], 1).T, np.float32)
+
+
+def _rays_at(rows, n, seed, dev):
+    """Even rays aimed at a random point of a random triangle, odd ones in
+    random directions, from [-1.2, 1.2]^3; limits in [0.05, 2)."""
+    rs = np.random.RandomState(seed)
+    o = rs.uniform(-1.2, 1.2, (n, 3))
+    pick = rs.randint(0, rows.shape[1], n)
+    b = rs.dirichlet((1.0, 1.0, 1.0), n)
+    target = rows[0:3, pick].T + b[:, 1:2] * rows[3:6, pick].T + b[:, 2:3] * rows[6:9, pick].T
+    d = np.where(np.arange(n)[:, None] % 2 == 0, target - o, rs.normal(size=(n, 3)))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    limit = rs.uniform(0.05, 2.0, n)
+    return (torch.as_tensor(a.astype(np.float32), device=dev) for a in (o, d, limit))
+
+
+def _brute_equals_plain(rows, opaque, n, seed, dev, lanes):
+    tris = torch.as_tensor(rows, device=dev)
+    opaque = torch.as_tensor(opaque, device=dev)
+    o, d, limit = _rays_at(rows, n, seed, dev)
+    tmax = torch.full((n,), 3.0e38, device=dev)
+    key, base = bk.closest_key(tris, o, d, tmax, lanes=lanes)
+    blocked = bk.any_hit(tris, opaque, o, d, limit, lanes=lanes)
+    pkey, pbase = bk.closest_key_plain(tris, o, d, tmax)
+    assert torch.equal(key, pkey) and torch.equal(base, pbase)
+    assert torch.equal(blocked, bk.any_hit_plain(tris, opaque, o, d, limit))
+    return pkey, pbase
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("n_tris", [1, 31, 32, 33, 1156, 4096, 7000])
+def test_brute_edges_equal_plain(cuda, n_tris, lanes):
+    """Every lane count (and the launcher's choice) at scene sizes around a
+    warp and up to one shared-memory tile; 7,000 triangles exceed one tile
+    and take the tiled loop. 10,007 rays fill no block and no lane group
+    evenly; the opacity mask has holes."""
+    rows = _rows(n_tris, n_tris)
+    opaque = np.random.RandomState(n_tris).uniform(size=n_tris) < 0.6
+    _brute_equals_plain(rows, opaque, 10_007, n_tris, cuda, lanes)
+    config = bk.LAST_CONFIG["any_hit"]
+    assert (config["tile"] < n_tris) == (n_tris == 7000)
+    assert lanes is None or config["lanes"] == lanes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 1, 8])
+def test_brute_ties_across_chunks_take_the_lowest(cuda, lanes):
+    """The same 128 triangles in three chunks: every hit ties in key across
+    the chunks, and the first chunk (chunk_base 0) must win, as in the
+    chunked reduction."""
+    one = _rows(128, 11)
+    rows = np.concatenate([one, one, one], 1)
+    key, base = _brute_equals_plain(rows, np.ones(384, bool), 4_099, 11, cuda, lanes)
+    hit = (key & ~127) != intersect.MISS_BITS
+    assert bool(hit.any()) and not bool(base[hit].any())
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_bad_input(cuda):
     scene = builtin.cornell_box(device=cuda)[0]
@@ -64,6 +128,8 @@ def test_kernel_refuses_bad_input(cuda):
         bk.closest_key(tris, o.double(), d, limit)
     with pytest.raises(ValueError, match="contiguous float32"):
         bk.closest_key(tris, o.T.contiguous().T, d, limit)
+    with pytest.raises(ValueError, match="lanes"):
+        bk.closest_key(tris, o, d, limit, lanes=3)
 
 
 @pytest.mark.cuda
@@ -92,6 +158,45 @@ def test_bvh_kernel_equals_plain_on_card(cuda):
     hit = bvh_traverse.decode(bvh, key, base).valid
     assert 0 < int(hit.sum()) < n and not hit[0::4].any()
     assert 0 < int(blocked.sum()) < n
+
+
+def _grazing(n, seed, dev):
+    """Rays that skim the displaced sphere (radius 1 +- 0.15): from 3 units
+    back along a tangent at a height of 0.95-1.15 over a random point of
+    the unit sphere; a quarter of the closest rays retired (tmax 0) and a
+    quarter of the shadow rays (limit 0)."""
+    rs = np.random.RandomState(seed)
+    u = rs.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    t = np.cross(u, rs.normal(size=(n, 3)))
+    t /= np.linalg.norm(t, axis=-1, keepdims=True)
+    o = rs.uniform(0.95, 1.15, (n, 1)) * u - 3.0 * t
+    k = np.arange(n)
+    tm = np.where(k % 4 == 0, 0.0, 3.0e38)
+    limit = np.where(k % 4 == 1, 0.0, 6.0)
+    return (torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
+            for a in (o, t, tm, o[::-1], t[::-1], limit))
+
+
+@pytest.mark.cuda
+def test_bvh_kernel_grazing_rays_equal_plain(cuda):
+    """Grazing rays along the displaced sphere push the walk's stack deep;
+    all three entries equal the twin bit for bit, retired lanes included."""
+    scene, _ = builtin.displaced_sphere(96, 64, device=cuda)
+    bvh = scene.bvh
+    n = 20_000
+    o, d, tm, o2, d2, limit = _grazing(n, 4, cuda)
+    key, base = bvk.closest_key(bvh, o, d, tm)
+    blocked = bvk.blocked(bvh, o2, d2, limit)
+    fkey, fbase, fblocked = bvk.closest_and_any_key(bvh, o, d, tm, o2, d2, limit)
+    stats = {}
+    pkey, pbase, _ = bvh_traverse.walk(bvh, o, d, tm, n, stats)
+    pblocked = bvh_traverse.walk(bvh, o2, d2, limit, 0, stats)[2]
+    assert torch.equal(key, pkey) and torch.equal(base, pbase)
+    assert torch.equal(fkey, pkey) and torch.equal(fbase, pbase)
+    assert torch.equal(blocked, pblocked) and torch.equal(fblocked, pblocked)
+    assert stats["max_stack"] > 2 * bvh.wide_depth
+    assert stats["max_stack"] <= bvh_traverse.stack_depth(bvh) <= bvk.KERNEL_STACK
 
 
 @pytest.mark.cuda
