@@ -8,8 +8,16 @@ parallel), checks each kernel against its plain PyTorch version on the card
 (bit for bit) and times both, renders the golden configuration, the
 headline Cornell render (256x256, 256 spp, depth 8) and the big-mesh render
 (the 70,034-triangle displaced sphere, 128x128, 16 spp, depth 4, fused and
-compacted wavefront) through the kernels, and checks the images. Every
-phase prints one line; any failure raises, so the exit code is non-zero.
+compacted wavefront) through the kernels, and checks the images. Then the
+gradient path, both kernels inside reverse-mode steps: the gradients
+through each kernel against those through its plain twin, the quad-blocker
+shadow gradient and the 10,372-triangle mesh-scale gradient against finite
+differences, an inverse recovery on the mesh, and the headline gradient
+(Cornell 256x256, 16 spp, an L2 loss through boundary.render_grad) timed,
+with its peak memory and device busy share; in the mesh and headline
+steps, one launch of each kernel entry at each batch size the step takes
+is rerun through the plain twin, bit for bit. Every phase prints one line;
+any failure raises, so the exit code is non-zero.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -23,6 +31,7 @@ PyTorch version's call. `launches` is the count from the kernel's path.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -45,9 +54,10 @@ ROOT = Path(__file__).resolve().parent
 HEADLINE_MEAN = 0.253395
 HEADLINE_MEAN_RTOL = 0.01
 HEADLINE_F32_MEAN_RTOL = 0.02
-# golden bar of tests/test_torch_render.py: rtol = atol = 1e-4 except at most
-# GOLDEN_MAX_FLIPS pixels, each within GOLDEN_MAX_FLIP (one sample of 64
-# that took another path at a geometric edge)
+# golden bar of tests/test_torch_render.py (cornell_path) and
+# tests/test_torch_grad.py (cornell_direct): rtol = atol = 1e-4 except at
+# most GOLDEN_MAX_FLIPS pixels, each within GOLDEN_MAX_FLIP (one sample of
+# 64 that took another path at a geometric edge)
 GOLDEN_TOL = 1e-4
 GOLDEN_MAX_FLIPS = 1
 GOLDEN_MAX_FLIP = 0.01
@@ -163,6 +173,44 @@ def random_scene(n_tris, seed, dev):
     tris = np.arange(3 * n_tris, dtype=np.int32).reshape(3, n_tris).T.copy()
     return ir.build_scene(verts, tris, np.zeros(n_tris, np.int32),
                           [{"type": ir.BSDF_DIFFUSE}], device=dev)
+
+
+def shadow_scene(dev):
+    """tests/test_vertex_grad.py's quad-blocker fixture, built with the
+    port's build_scene (the script runs without JAX): a floor, a quad blocker
+    above the camera and a small area light, so the image sees the
+    blocker's shadow and not the blocker. Returns (scene, camera); the
+    blocker's vertex rows are BLOCKER_ROWS."""
+    from mitsuba_tpu_torch.models import sensor
+    from mitsuba_tpu_torch.scene import ir
+
+    verts, tris, tri_mat, tri_rad = [], [], [], {}
+
+    def add_quad(p0, p1, p2, p3, mat, rad=None):
+        b = len(verts)
+        verts.extend([p0, p1, p2, p3])
+        for t in ([b, b + 1, b + 2], [b, b + 2, b + 3]):
+            if rad is not None:
+                tri_rad[len(tris)] = rad
+            tris.append(t)
+            tri_mat.append(mat)
+
+    white = {"type": ir.BSDF_DIFFUSE, "reflectance": [0.8, 0.8, 0.8]}
+    dark = {"type": ir.BSDF_DIFFUSE, "reflectance": [0.2, 0.2, 0.2]}
+    lm = {"type": ir.BSDF_DIFFUSE, "reflectance": [0.0, 0.0, 0.0]}
+    add_quad([-2, 0, -2], [-2, 0, 2], [2, 0, 2], [2, 0, -2], 0)
+    add_quad([-0.5, 0.9, -0.3], [-0.5, 0.9, 0.3], [-0.1, 0.9, 0.3], [-0.1, 0.9, -0.3], 1)
+    add_quad([-0.1, 1.5, -0.1], [0.1, 1.5, -0.1], [0.1, 1.5, 0.1], [-0.1, 1.5, 0.1], 2,
+             rad=[30.0, 30.0, 30.0])
+    scene = ir.build_scene(np.asarray(verts, np.float32), np.asarray(tris, np.int32),
+                           np.asarray(tri_mat, np.int32), [white, dark, lm],
+                           tri_radiance=tri_rad, device=dev)
+    cam = sensor.make_camera(origin=[-0.15, 0.8, 0.0], target=[-0.15, 0.0, 0.0],
+                             up=[0, 0, 1], fov_x=45.0, width=24, height=24, device=dev)
+    return scene, cam
+
+
+BLOCKER_ROWS = (4, 8)
 
 
 def kernel_rays(scene, n, seed, dev):
@@ -474,8 +522,9 @@ def check_golden(img, ref):
 
 
 def phase_golden(dev):
-    """tools/golden_scenes.py's cornell_path config through the wavefront."""
-    from mitsuba_tpu_torch.integrators import common, wavefront
+    """tools/golden_scenes.py's cornell_path config through the wavefront,
+    and its cornell_direct config through the direct integrator."""
+    from mitsuba_tpu_torch.integrators import common, direct, wavefront
     from mitsuba_tpu_torch.scene import builtin
 
     ref = np.load(ROOT / "tests" / "golden" / "cornell_path.npy")
@@ -483,7 +532,12 @@ def phase_golden(dev):
     cfg = common.RenderConfig(spp=64, max_depth=8, rr_depth=5, seed=7)
     img = wavefront.render(scene, cam, cfg).cpu().numpy()
     flips, max_diff = check_golden(img, ref)
-    say("golden", shape=list(img.shape), pixels_off=flips, max_abs_diff=max_diff)
+    ref_d = np.load(ROOT / "tests" / "golden" / "cornell_direct.npy")
+    img_d = common.render(scene, cam, direct.li,
+                          common.RenderConfig(spp=64, max_depth=2, seed=7)).cpu().numpy()
+    flips_d, max_diff_d = check_golden(img_d, ref_d)
+    say("golden", shape=list(img.shape), pixels_off=flips, max_abs_diff=max_diff,
+        direct_pixels_off=flips_d, direct_max_abs_diff=max_diff_d)
 
 
 def useful_rays_per_sample(scene, cam, cfg, count_spp):
@@ -897,6 +951,369 @@ def phase_bigmesh(dev, lanes=4):
     return {"bigmesh_render": launches, "bigmesh_count_pass": count_launches}
 
 
+# Gradient phases. FD bars and protocols: tests/test_vertex_grad.py:143-172
+# (quad blocker, 5%) and :373-492 (mesh scale, 10%; inverse recovery within
+# 0.06 of the true translation).
+GRAD_KERNEL_RTOL = 1e-4
+GRAD_HEADLINE_SPP = 16
+SHADOW_FD_RTOL = 0.05
+MESH_FD_RTOL = 0.10
+MESH_THETA_TRUE, MESH_THETA_TOL = 0.2, 0.06
+
+
+def grad_leaves(scene):
+    """(scene', leaves): scene' with fresh vertices, reflectances and
+    radiances that require grad."""
+    leaves = [x.detach().clone().requires_grad_(True) for x in
+              (scene.vertices, scene.materials.reflectance, scene.emitters.radiance)]
+    return scene.replace(vertices=leaves[0],
+                         materials=scene.materials.replace(reflectance=leaves[1]),
+                         emitters=scene.emitters.replace(radiance=leaves[2])), leaves
+
+
+def render_grads(scene, cam, cfg, bc):
+    """Gradients of render_grad's mean with respect to the vertices,
+    reflectances and radiances."""
+    from mitsuba_tpu_torch.integrators import boundary
+
+    s, leaves = grad_leaves(scene)
+    boundary.render_grad(s, cam, cfg, bc).mean().backward()
+    return [x.grad for x in leaves]
+
+
+def plain_twins():
+    """{(module, entry): plain twin} of the kernel entries the gradient
+    paths launch: the brute-force entries' plain versions, and the BVH walk
+    for the BVH entries. Each twin takes its entry's arguments, the rays
+    o, d and tmax (or limit) last."""
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.ops import bvh_traverse as bt
+
+    return {(bk, "closest_key"): bk.closest_key_plain,
+            (bk, "any_hit"): bk.any_hit_plain,
+            (bvk, "closest_key"): lambda bvh, o, d, tm: bt.walk(bvh, o, d, tm, o.shape[0])[:2],
+            (bvk, "blocked"): lambda bvh, o, d, lim: bt.walk(bvh, o, d, lim, 0)[2]}
+
+
+def plain_patched(mod):
+    """A context in which the kernel entries of `mod` are their plain twins."""
+    stack = contextlib.ExitStack()
+    for (owner, entry), twin in plain_twins().items():
+        if owner is mod:
+            stack.enter_context(mock.patch.object(owner, entry, twin))
+    return stack
+
+
+def keeping_launches(mod):
+    """(context, kept): within the context, the first call of each kernel
+    entry of `mod` at each batch size keeps a copy of its arguments and
+    results in kept[(entry, rays)], for check_kept. The call itself, and
+    its launch count, are unchanged."""
+    import torch
+
+    kept = {}
+    stack = contextlib.ExitStack()
+    for owner, entry in plain_twins():
+        if owner is not mod:
+            continue
+
+        def call(*args, _fn=getattr(owner, entry), _entry=entry):
+            out = _fn(*args)
+            key = (_entry, args[-1].shape[0])
+            if key[1] and key not in kept:
+                kept[key] = ([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+                             [x.clone() for x in (out if isinstance(out, tuple) else (out,))])
+            return out
+
+        stack.enter_context(mock.patch.object(owner, entry, call))
+    return stack, kept
+
+
+def check_kept(mod, kept, chunk=1 << 20):
+    """Reruns each kept launch of `mod` through its plain twin, `chunk`
+    rays at a time, and raises where a key, base or blocked differs, or
+    where an entry of `mod` kept no launch. Returns {entry: the batch
+    sizes checked}."""
+    import torch
+
+    twins = {entry: twin for (owner, entry), twin in plain_twins().items() if owner is mod}
+    checked = {}
+    for (entry, n), (args, outs) in sorted(kept.items(), key=lambda kv: kv[0]):
+        parts = []
+        for s in range(0, n, chunk):
+            got = twins[entry](*args[:-3], *(a[s:s + chunk] for a in args[-3:]))
+            parts.append(got if isinstance(got, tuple) else (got,))
+        plain = [torch.cat(p) for p in zip(*parts)]
+        differ = sum(int((a != b).sum()) for a, b in zip(outs, plain))
+        if differ or len(plain) != len(outs):
+            raise AssertionError(f"{entry} at {n} rays: {differ} results differ from "
+                                 "the plain twin's")
+        checked.setdefault(entry, []).append(n)
+    if set(checked) != set(twins):
+        raise AssertionError(f"launches kept of {sorted(twins)}: {sorted(checked)}")
+    return checked
+
+
+def phase_grad_kernels(dev):
+    """The gradient of render_grad's mean through each kernel against the
+    gradient with its plain twin patched in: B1 on Cornell (64x64, 4 spp,
+    depth 8, the default BoundaryConfig), B2 on sphere_shadow with the BVH
+    attached (10,372 triangles, 20x20, 4 spp, depth 2). Equal up to the
+    summation order of the splat and of the gathers' backward (atomics):
+    within GRAD_KERNEL_RTOL of each tensor's largest entry."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import boundary, common
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.scene import builtin
+
+    cornell, cam_c = builtin.cornell_box(64, 64, device=dev)
+    mesh, cam_m, _ = builtin.sphere_shadow(attach_bvh=True, device=dev)
+    cases = (("b1_cornell", cornell, cam_c, common.RenderConfig(spp=4, max_depth=8, rr_depth=5),
+              bk),
+             ("b2_sphere_shadow", mesh, cam_m, common.RenderConfig(spp=4, max_depth=2), bvk))
+    fields = {}
+    for name, scene, cam, cfg, mod in cases:
+        for counts in (bk, bvk):
+            counts.reset_counts()
+        grads = render_grads(scene, cam, cfg, boundary.BoundaryConfig())
+        launches = dict(mod.KERNEL_LAUNCHES)
+        other = bvk if mod is bk else bk
+        if min(v for k, v in launches.items() if k != "closest_and_any") == 0 \
+                or any(other.KERNEL_LAUNCHES.values()) or any(mod.PLAIN_CALLS.values()):
+            raise AssertionError(f"{name}: the gradient step bypassed its kernel: {launches}")
+        with plain_patched(mod):
+            plain = render_grads(scene, cam, cfg, boundary.BoundaryConfig())
+        rel = [float((g - q).abs().max() / q.abs().max()) for g, q in zip(grads, plain)]
+        fields[name] = {"launches": launches, "rel_diff_v_r_e": rel,
+                        "finite": all(bool(torch.isfinite(g).all()) for g in grads)}
+        if max(rel) > GRAD_KERNEL_RTOL or not fields[name]["finite"]:
+            raise AssertionError(f"{name}: kernel and plain gradients differ: {rel}")
+    say("grad_kernels", tris={"b1_cornell": cornell.num_triangles,
+                              "b2_sphere_shadow": mesh.num_triangles},
+        rtol=GRAD_KERNEL_RTOL, **fields)
+
+
+def shifted(scene, rows, theta):
+    """scene with its vertex rows [rows) moved by theta along x (theta a
+    float or a tensor that requires grad)."""
+    import torch
+
+    mask = torch.zeros_like(scene.vertices)
+    mask[rows[0]:rows[1], 0] = 1.0
+    return scene.replace(vertices=scene.vertices + theta * mask)
+
+
+def mean_image(scene, cam, li, cfg):
+    from mitsuba_tpu_torch.integrators import common
+
+    return common.render(scene, cam, li, cfg).mean()
+
+
+def theta_grad(scene, rows, theta0, cam, li, cfg):
+    """d(mean image)/d(theta) of the rows' x-translation at theta0."""
+    import torch
+
+    theta = torch.tensor(float(theta0), device=scene.device, requires_grad=True)
+    mean_image(shifted(scene, rows, theta - theta0), cam, li, cfg).backward()
+    return float(theta.grad)
+
+
+def li_grad_fn(bc):
+    from mitsuba_tpu_torch.integrators import boundary
+
+    return lambda s, c, o, d, st, cf: boundary.li_grad(s, c, o, d, st, cf, bc)
+
+
+def phase_grad_shadow(dev):
+    """tests/test_vertex_grad.py:143-172 on the card (B1): the quad blocker's
+    x-translation moves only its shadow; central FD of the path render (768
+    spp, eps 0.025, seed 7) against li_grad (n_edge 8, 64 spp, seeds 3 and
+    11), within 5%; plain AD (path.li, 16 spp) sees under 5% of it."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import boundary, common, path
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+
+    scene, cam = shadow_scene(dev)
+    eps = 0.025
+    cfg_fd = common.RenderConfig(spp=768, max_depth=2, seed=7)
+    with torch.no_grad():
+        fd = (float(mean_image(shifted(scene, BLOCKER_ROWS, eps), cam, path.li, cfg_fd))
+              - float(mean_image(shifted(scene, BLOCKER_ROWS, -eps), cam, path.li, cfg_fd))) \
+            / (2 * eps)
+    g0 = theta_grad(scene, BLOCKER_ROWS, 0.0, cam, path.li,
+                    common.RenderConfig(spp=16, max_depth=2, seed=7))
+    bk.reset_counts()
+    bc = boundary.BoundaryConfig(n_edge=8, primary=False)
+    gs = [theta_grad(scene, BLOCKER_ROWS, 0.0, cam, li_grad_fn(bc),
+                     common.RenderConfig(spp=64, max_depth=2, seed=seed)) for seed in (3, 11)]
+    g = float(np.mean(gs))
+    launches = dict(bk.KERNEL_LAUNCHES)
+    say("grad_shadow", fd=round(fd, 6), li_grad=round(g, 6), per_seed=[round(x, 6) for x in gs],
+        rel_err=round(abs(g - fd) / abs(fd), 5), bar=SHADOW_FD_RTOL, plain_ad=round(g0, 6),
+        b1_launches=launches)
+    if not fd < -0.2 or abs(g0) >= 0.05 * abs(fd) or abs(g - fd) >= SHADOW_FD_RTOL * abs(fd):
+        raise AssertionError(f"quad-blocker gradient {g} (plain AD {g0}) against FD {fd}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"the shadow gradient bypassed B1: {launches}")
+
+
+def phase_grad_mesh(dev):
+    """tests/test_vertex_grad.py:373-492 on the card (B2): sphere_shadow's
+    10,372 triangles with the BVH attached. The blocker's x-translation
+    gradient at theta0 0.2: central FD (48 spp, eps 0.04, the BVH attached
+    anew at each theta) against li_grad (n_edge 8, 24 spp, seeds 3, 11, 19,
+    27, the vertices moved on theta0's tables), within 10%. Then the 8-step
+    inverse recovery (16x16, target 48 spp seed 13, from theta 0.32, n_edge
+    4, 8 spp, clipped steps) to within 0.06 of 0.2. The first launch of
+    each BVH entry at each batch size of the gradient steps is rerun
+    through the walk (check_kept), bit for bit. Returns the BVH kernel's
+    launches in the gradient steps."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import boundary, common, path
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.scene import builtin
+    from mitsuba_tpu_torch.scene import bvh as bvhlib
+
+    t0 = time.perf_counter()
+    scene0, cam, rows = builtin.sphere_shadow(device=dev)
+    theta0, eps = 0.2, 0.04
+    cfg_fd = common.RenderConfig(spp=48, max_depth=2, seed=7)
+
+    def scene_at(base, theta):
+        return bvhlib.attach(shifted(base, rows, theta))
+
+    with torch.no_grad():
+        fd = (float(mean_image(scene_at(scene0, theta0 + eps), cam, path.li, cfg_fd))
+              - float(mean_image(scene_at(scene0, theta0 - eps), cam, path.li, cfg_fd))) \
+            / (2 * eps)
+    base = scene_at(scene0, theta0)
+    for counts in (bk, bvk):
+        counts.reset_counts()
+    bc = boundary.BoundaryConfig(n_edge=8, primary=False)
+    keeping, kept = keeping_launches(bvk)
+    with keeping:
+        gs = [theta_grad(base, rows, theta0, cam, li_grad_fn(bc),
+                         common.RenderConfig(spp=24, max_depth=2, seed=seed))
+              for seed in (3, 11, 19, 27)]
+    g = float(np.mean(gs))
+    launches, plain, brute = dict(bvk.KERNEL_LAUNCHES), dict(bvk.PLAIN_CALLS), dict(bk.KERNEL_LAUNCHES)
+    grad_s = time.perf_counter() - t0
+    twin_checked = check_kept(bvk, kept)
+
+    scene16, cam16, _ = builtin.sphere_shadow(width=16, height=16, device=dev)
+    with torch.no_grad():
+        target = common.render(scene_at(scene16, MESH_THETA_TRUE), cam16, path.li,
+                               common.RenderConfig(spp=48, max_depth=2, seed=13))
+    theta, lr, trail = 0.32, 3.0, []
+    bc4 = boundary.BoundaryConfig(n_edge=4, primary=False)
+    for it in range(8):
+        at = scene_at(scene16, theta)
+        th = torch.tensor(theta, device=dev, requires_grad=True)
+        img = common.render(shifted(at, rows, th - theta), cam16, li_grad_fn(bc4),
+                            common.RenderConfig(spp=8, max_depth=2, seed=it + 1))
+        ((img - target) ** 2).mean().backward()
+        step = float(np.clip(lr * float(th.grad), -0.05, 0.05))
+        theta = float(np.clip(theta - step, 0.0, 0.5))
+        lr *= 0.85
+        trail.append(round(theta, 4))
+    say("grad_mesh", tris=scene0.num_triangles, fd=round(fd, 6), li_grad=round(g, 6),
+        per_seed=[round(x, 6) for x in gs], rel_err=round(abs(g - fd) / abs(fd), 5),
+        bar=MESH_FD_RTOL, bvh_kernel_launches=launches, bvh_plain_calls=plain,
+        brute_launches=brute, twin_checked_rays=twin_checked, twin_mismatches=0,
+        fd_and_grad_s=round(grad_s, 3), inverse_theta=trail,
+        inverse_err=round(abs(theta - MESH_THETA_TRUE), 5), inverse_bar=MESH_THETA_TOL)
+    if not fd > 0.1 or abs(g - fd) >= MESH_FD_RTOL * abs(fd):
+        raise AssertionError(f"mesh-scale gradient {g} against FD {fd}")
+    if abs(theta - MESH_THETA_TRUE) >= MESH_THETA_TOL:
+        raise AssertionError(f"inverse recovery ended at {theta}")
+    if min(launches["closest"], launches["any_hit"]) == 0 or any(plain.values()) \
+            or any(brute.values()):
+        raise AssertionError(f"the mesh gradient bypassed B2: {launches}, plain {plain}, "
+                             f"brute {brute}")
+    return launches
+
+
+def phase_grad_headline(dev, spp):
+    """The README's use at the headline film: Cornell 256x256, depth 8,
+    rr_depth 5, `spp` samples, an L2 loss against a target render (64 spp,
+    seed 1) through boundary.render_grad with the default BoundaryConfig
+    (n_edge 8, the splat pass with 16,384 samples), gradients with respect
+    to the vertices, reflectances and radiances. Forward and backward
+    seconds (host clock, synchronised), peak memory, B1's launches, the
+    device busy share of the step (torch.profiler's kernel time over the
+    unprofiled step's wall time) and the bytes autograd saved for the
+    backward (each storage once, counted in the profiled step). In the
+    profiled step the first launch of each B1 entry at each batch size is
+    kept and then rerun through the plain twin (check_kept), bit for bit.
+    Returns B1's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mitsuba_tpu_torch.integrators import boundary, common, path
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(256, 256, device=dev)
+    cfg = common.RenderConfig(spp=spp, max_depth=8, rr_depth=5, seed=0)
+    with torch.no_grad():
+        target = common.render(scene, cam, path.li,
+                               common.RenderConfig(spp=64, max_depth=8, rr_depth=5, seed=1))
+    bc = boundary.BoundaryConfig()
+
+    def step():
+        s, leaves = grad_leaves(scene)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss = ((boundary.render_grad(s, cam, cfg, bc) - target) ** 2).mean()
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        return float(loss.detach()), [x.grad for x in leaves], t1 - t0, time.perf_counter() - t1
+
+    bk.reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss, grads, fwd_s, bwd_s = step()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    launches, plain = dict(bk.KERNEL_LAUNCHES), dict(bk.PLAIN_CALLS)
+    saved = {}
+
+    def pack(t):
+        storage = t.untyped_storage()
+        saved[storage.data_ptr()] = storage.nbytes()
+        return t
+
+    keeping, kept = keeping_launches(bk)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t), keeping:
+        step()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    device_s = sum(e.device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    twin_checked = check_kept(bk, kept)
+    del kept
+    say("grad_headline", resolution="256x256", spp=spp, max_depth=8, loss=round(loss, 8),
+        forward_s=round(fwd_s, 4), backward_s=round(bwd_s, 4),
+        peak_gb=round(peak_gb, 3), saved_gb=round(sum(saved.values()) / 1e9, 3),
+        b1_launches=launches, b1_plain_calls=plain,
+        twin_checked_rays=twin_checked, twin_mismatches=0, device_busy_s=round(device_s, 4), busy_share=round(device_s / (fwd_s + bwd_s), 4),
+        device_kernels=sum(e.count for e in kernels),
+        top_ms=[(e.key[:48], round(e.device_time_total / 1e3, 2)) for e in top],
+        grad_abs_max=[float(g.abs().max()) for g in grads], finite=finite)
+    if not finite or min(launches.values()) == 0 or any(plain.values()):
+        raise AssertionError(f"headline gradient: finite {finite}, launches {launches}, "
+                             f"plain calls {plain}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -946,6 +1363,11 @@ def main(argv=None) -> int:
     paths = {"headline_render": {f"brute_{k}": v for k, v in brute.items()}}
     for path, counts in phase_bigmesh(dev).items():
         paths[path] = {f"bvh_{k}": v for k, v in counts.items()}
+    phase_grad_kernels(dev)
+    phase_grad_shadow(dev)
+    paths["grad_mesh"] = {f"bvh_{k}": v for k, v in phase_grad_mesh(dev).items()}
+    paths["grad_headline"] = {f"brute_{k}": v
+                              for k, v in phase_grad_headline(dev, GRAD_HEADLINE_SPP).items()}
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -4,9 +4,12 @@ The package mirrors `mitsuba_tpu/` module by module (core, scene, models,
 ops, integrators) so each function's JAX counterpart sits at the same path.
 The JAX package is the reference; this one imports torch and never jax.
 
-Rendering is primal only for now, and the brute-force ray-triangle search
-runs a hand-written CUDA kernel on the GPU (`ops/brute_kernel.py`,
-`csrc/brute_intersect.cu`) with a plain PyTorch twin on the CPU.
+The ray-triangle searches run hand-written CUDA kernels on the GPU
+(`ops/brute_kernel.py` + `csrc/brute_intersect.cu`, `ops/bvh_kernel.py` +
+`csrc/bvh_intersect.cu`) with plain PyTorch twins on the CPU. Renders are
+differentiable with autograd: the searches are detached, and gradients
+reach the geometry through the recomputed hit and the edge-sampled
+boundary terms (`integrators/boundary.py`, `integrators/reparam.py`).
 """
 
 import torch

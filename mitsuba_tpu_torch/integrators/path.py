@@ -122,8 +122,10 @@ def _li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         o_new = p + ng * off_sign[:, None]
 
         # --- Russian roulette -----------------------------------------------
+        # the survival probability is a sampling decision, not part of the
+        # integrand: its gradient is stopped (path.py:154-155)
         q = torch.clamp_max(torch.amax(beta_new, dim=-1) * eta_scale * eta_scale, 0.95)
-        q = torch.clamp_min(q, 0.05)
+        q = torch.clamp_min(q, 0.05).detach()
         if t >= cfg.rr_depth - 1:
             survive = bounce_u(t, 6) < q
             beta_new = beta_new / q[:, None]

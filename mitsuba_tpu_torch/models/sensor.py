@@ -1,7 +1,9 @@
 """Sensors: batched primary-ray generation (port of models/sensor.py).
 
-Only the perspective pinhole camera is ported; the other sensor kinds and
-two-keyframe motion blur raise NotImplementedError.
+Only the perspective pinhole camera is ported: ray generation, the
+projection of world points to raster coordinates and the one-pixel ray
+differentials (the last two serve the camera-silhouette boundary pass). The
+other sensor kinds and two-keyframe motion blur raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -100,8 +102,7 @@ def sample_rays(cam: Camera, px: torch.Tensor, py: torch.Tensor,
     px, py: (N,) in [0, W) x [0, H); u_lens: (N,2), unused by the pinhole.
     Returns (o, d, importance), with importance 1.
     """
-    if cam.kind != SENSOR_PERSPECTIVE:
-        raise NotImplementedError(f"sensor kind {cam.kind} is not ported")
+    _perspective_only(cam)
     if cam.to_world_end is not None:
         raise NotImplementedError("camera motion blur is not ported")
     n = px.shape[0]
@@ -123,6 +124,65 @@ def sample_rays(cam: Camera, px: torch.Tensor, py: torch.Tensor,
     o = _rotate(o_cam, rot) + cam.to_world[:3, 3]
     d = m.normalize(_rotate(d_cam, rot))
     return o, d, imp
+
+
+def _perspective_only(cam: Camera):
+    if cam.kind != SENSOR_PERSPECTIVE:
+        raise NotImplementedError(f"sensor kind {cam.kind} is not ported")
+
+
+def _tan_half_aspect(cam: Camera):
+    tan_half = torch.tan(0.5 * (cam.fov_x * (math.pi / 180.0)))
+    return tan_half, np.float32(cam.height) / np.float32(cam.width)
+
+
+def world_to_raster(cam: Camera, p: torch.Tensor):
+    """Project world points (N,3) to continuous pixel coordinates (JAX
+    sensor.py:198). Returns (px, py, valid, importance): valid where the
+    point lies in front of the near plane and inside the film; importance
+    is the W_e factor 1 / (A_film cos^4) of particle tracing."""
+    _perspective_only(cam)
+    rot = cam.to_world[:3, :3]
+    trans = cam.to_world[:3, 3]
+    p_cam = (p - trans) @ rot    # rot is orthonormal: its inverse is rot.T
+    z = p_cam[..., 2]
+    valid = z > cam.near
+    zs = torch.where(valid, z, 1.0)
+    tan_half, aspect = _tan_half_aspect(cam)
+    sx = p_cam[..., 0] / (zs * tan_half)
+    sy = p_cam[..., 1] / (zs * tan_half * aspect)
+    px = (sx + 1.0) * 0.5 * cam.width
+    py = (1.0 - sy) * 0.5 * cam.height
+    valid = valid & (px >= 0) & (px < cam.width) & (py >= 0) & (py < cam.height)
+    cos_t = m.normalize(p_cam)[..., 2]
+    film_area = 4.0 * tan_half * tan_half * aspect
+    imp = m.safe_div(torch.ones_like(cos_t),
+                     film_area * torch.clamp_min(cos_t, 1e-6) ** 4)
+    return px, py, valid, imp
+
+
+def ray_differentials(cam: Camera, d: torch.Tensor):
+    """Changes (dd_dx, dd_dy) of unit world ray directions d (N,3) for
+    one-pixel raster steps, in closed form from the pinhole model (JAX
+    sensor.py:223)."""
+    _perspective_only(cam)
+    tan_half, aspect = _tan_half_aspect(cam)
+    rot = cam.to_world[:3, :3]
+    d_cam = d @ rot                       # R^T d (columns orthonormal)
+    v = d_cam / torch.clamp_min(d_cam[..., 2:3], 1e-8)
+    zero = torch.zeros_like(tan_half)
+    dv_dx = torch.stack([2.0 * 1.0 / np.float32(cam.width) * tan_half, zero, zero])
+    dv_dy = torch.stack([zero, -2.0 * 1.0 / np.float32(cam.height) * aspect * tan_half,
+                         zero])
+
+    def dnorm(vv, dvv):
+        # d(normalize(v)) = (I - n n^T) dv / |v|
+        inv_len = torch.rsqrt(torch.clamp_min(m.dot(vv, vv), 1e-12))
+        nrm = vv * inv_len[:, None]
+        dvv = dvv.expand(vv.shape)
+        return (dvv - nrm * m.dot(nrm, dvv)[:, None]) * inv_len[:, None]
+
+    return dnorm(v, dv_dx) @ rot.T, dnorm(v, dv_dy) @ rot.T
 
 
 def _rotate(v: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,9 @@ so it rounds each op as the plain version does and the two agree bit for
 bit.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. KERNEL_LAUNCHES and PLAIN_CALLS count each route per entry point;
+raises, with or without autograd. Neither route has a backward: the trace
+entry points hand both of them detached inputs (`intersect.search_inputs`).
+KERNEL_LAUNCHES and PLAIN_CALLS count each route per entry point;
 LAST_CONFIG holds each entry's last launch configuration (lanes per ray,
 block size, triangles per tile, shared memory bytes).
 """

@@ -30,8 +30,11 @@ The kernel is built with --fmad=false and repeats the twin's operations, so
 the two agree bit for bit.
 
 A CPU tensor takes the plain version (`bvh_traverse.walk`); a CUDA tensor
-launches the kernel or raises. KERNEL_LAUNCHES and PLAIN_CALLS count each
-route per entry point; LAST_GRID holds each entry's last grid (blocks).
+launches the kernel or raises, with or without autograd. Neither route has
+a backward: the entry points below hand both of them detached rays
+(`intersect.search_inputs`; the twin writes into tensors in place), and the
+tables are built detached (`scene/bvh.attach`). KERNEL_LAUNCHES and
+PLAIN_CALLS count each route per entry point; LAST_GRID holds each entry's last grid (blocks).
 """
 from __future__ import annotations
 
@@ -185,26 +188,24 @@ def closest_and_any_key(bvh, o_c, d_c, tmax_c, o_s, d_s, limit_s):
 def _tmax(o, tmax):
     if tmax is None:
         return torch.full((o.shape[0],), m.INF, dtype=torch.float32, device=o.device)
-    return tmax.contiguous()
+    return tmax
 
 
 def closest_hit(scene, bvh, o, d, tmax=None) -> I.Intersection:
-    key, base = closest_key(bvh, o.contiguous(), d.contiguous(), _tmax(o, tmax))
+    key, base = closest_key(bvh, *I.search_inputs(o, d, _tmax(o, tmax)))
     return BT.decode(bvh, key, base)
 
 
 def any_hit(scene, bvh, o, d, tmax) -> torch.Tensor:
     """Shadow query: True if an opaque triangle blocks
     (SHADOW_EPS, tmax*(1-SHADOW_EPS))."""
-    return blocked(bvh, o.contiguous(), d.contiguous(),
-                   (tmax * (1.0 - I.SHADOW_EPS)).contiguous())
+    return blocked(bvh, *I.search_inputs(o, d, tmax * (1.0 - I.SHADOW_EPS)))
 
 
 def closest_and_any(scene, bvh, o_c, d_c, tmax_c, o_s, d_s, tmax_s):
     """Closest hit of (o_c, d_c) below tmax_c and shadow any-hit of
     (o_s, d_s) below tmax_s*(1-SHADOW_EPS), in one launch. Retired rays
     (tmax 0) neither hit nor block."""
-    key, base, blk = closest_and_any_key(
-        bvh, o_c.contiguous(), d_c.contiguous(), _tmax(o_c, tmax_c),
-        o_s.contiguous(), d_s.contiguous(), (tmax_s * (1.0 - I.SHADOW_EPS)).contiguous())
+    key, base, blk = closest_and_any_key(bvh, *I.search_inputs(
+        o_c, d_c, _tmax(o_c, tmax_c), o_s, d_s, tmax_s * (1.0 - I.SHADOW_EPS)))
     return BT.decode(bvh, key, base), blk

@@ -50,6 +50,17 @@ def tri_soa(scene) -> torch.Tensor:
     return torch.cat([p0, e1, e2], dim=1).T.contiguous()
 
 
+def search_inputs(*xs):
+    """Detached, contiguous copies of a search's float inputs. The search
+    is stopped as the JAX package stops it (intersect.py:317,
+    pallas_intersect.py:119-120, binned_intersect.py:566-569): gradients
+    reach the hit only through `surface_interaction`'s recomputation, and
+    neither route records autograd history. The one place the search is
+    stopped: every trace entry point passes its rays and triangle rows
+    through here before either route sees them."""
+    return tuple(x.detach().contiguous() for x in xs)
+
+
 def tri_test(o, d, tri):
     """Moller-Trumbore of rays against triangles, all broadcastable.
 
@@ -109,8 +120,7 @@ def intersect_brute(scene, o: torch.Tensor, d: torch.Tensor,
     n = o.shape[0]
     if tmax is None:
         tmax = torch.full((n,), m.INF, dtype=torch.float32, device=o.device)
-    key, base = brute_kernel.closest_key(tri_soa(scene), o.contiguous(),
-                                         d.contiguous(), tmax.contiguous())
+    key, base = brute_kernel.closest_key(*search_inputs(tri_soa(scene), o, d, tmax))
     return _finish_closest(scene, key, base, n)
 
 
@@ -133,9 +143,8 @@ def occluded_brute(scene, o: torch.Tensor, d: torch.Tensor,
     (`scene.tri_opaque` False) never block."""
     from . import brute_kernel
 
-    limit = tmax * (1.0 - SHADOW_EPS)
-    return brute_kernel.any_hit(tri_soa(scene), scene.tri_opaque.contiguous(),
-                                o.contiguous(), d.contiguous(), limit)
+    tris, o, d, limit = search_inputs(tri_soa(scene), o, d, tmax * (1.0 - SHADOW_EPS))
+    return brute_kernel.any_hit(tris, scene.tri_opaque.contiguous(), o, d, limit)
 
 
 def surface_interaction(scene, o, d, its: Intersection):
@@ -143,7 +152,8 @@ def surface_interaction(scene, o, d, its: Intersection):
     material, emitter). Invalid lanes hold harmless defaults.
 
     Barycentrics are recomputed from the winning triangle's vertices, since
-    the brute-force search returns only (t, prim). Perturbed normals, mip
+    the brute-force search returns only (t, prim); so are the derivatives
+    of p, ng, ns and uv with respect to `scene.vertices`. Perturbed normals, mip
     footprints, ray differentials, vertex colours and wireframes are not
     ported.
     """
@@ -172,12 +182,18 @@ def surface_interaction(scene, o, d, its: Intersection):
     qv = m.cross(tv, e1)
     b2 = torch.clamp(m.dot(d, qv) * inv_det, 0.0, 1.0)
 
-    # The JAX package re-attaches d(t)/d(vertices) to its.t here with a
-    # zero-primal term; rendering is primal only so far, so t is used as
-    # is until gradients land.
+    # Differentiable hit distance (intersect.py:512-527): the search's t is
+    # detached and quantised, so t is recomputed from the winning
+    # triangle's plane and only its derivative is attached to its.t (a
+    # zero-primal term): the primal stays the search's bit for bit, and
+    # d t / d vertices flows.
+    t_mt = m.dot(e2, qv) * inv_det
+    t_attach = torch.where(its.valid & ~bad, t_mt, its.t)
+    t_diff = its.t + (t_attach - t_attach.detach())
     # Invalid lanes carry t = INF: cap the shading position so masked-out
-    # math (NEE dist^2, MIS pdf ratios) stays finite.
-    t_pos = torch.where(its.valid, its.t, 1.0e6)
+    # math (NEE dist^2, MIS pdf ratios) stays finite, in the primal and in
+    # backward (0 * inf cotangents would give NaN).
+    t_pos = torch.where(its.valid, t_diff, 1.0e6)
     p = o + t_pos[:, None] * d
     # trust intersector-provided barycentrics when present
     has_bary = (its.b1 + its.b2) != 0.0

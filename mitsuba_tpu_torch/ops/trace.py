@@ -11,6 +11,10 @@ The policy mirrors the JAX package's, with the card in the TPU's place:
 `closest_and_any` is one fused launch on the card's BVH path (`fuses`,
 which also sets the wavefront's default `fuse`) and decomposes into the
 two standard queries everywhere else.
+
+Every query detaches its inputs (`intersect.search_inputs`), as the JAX
+package stops the gradient of its searches: the results carry no autograd
+history, and gradients reach the hit through `surface_interaction`.
 """
 from __future__ import annotations
 

@@ -204,7 +204,8 @@ def _kernel_tables(scene, bvh: BVH) -> BVH:
     order = bvh.tri_order.to(dev).long()
     pad = (order < 0)[:, None]
     tri = scene.indices[order.clamp_min(0)].long()
-    v = scene.vertices
+    # a search input: the tables are constants, as the search is stopped
+    v = scene.vertices.detach()
     p0 = v[tri[:, 0]]
     e1 = v[tri[:, 1]] - p0
     e2 = v[tri[:, 2]] - p0

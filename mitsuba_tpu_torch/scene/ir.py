@@ -7,6 +7,14 @@ plain Python, as they are static pytree fields in the JAX package. `bvh`
 holds the stackless BVH of big meshes (scene/bvh.py; None until
 `bvh.attach`). Textures, mip levels, vertex colours and wireframe materials
 are not ported yet.
+
+Gradients: the float leaves that may carry `requires_grad` (set through
+`replace()`, as the JAX tests differentiate them) are `vertices` (hit
+points, normals, emitter samples and the boundary terms' edge points),
+`materials.reflectance` and `emitters.radiance`. Every other leaf, and the
+derived tables (`edge_table`, `face_adj`, the emitter CDF and pdfs, a
+`bvh`), is a constant built at scene assembly: moving `vertices` leaves
+them at their build-time values, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -45,6 +53,17 @@ TEX_NONE = -1
 
 class _Replace:
     def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
+
+    def detach(self):
+        """A copy whose tensor leaves (nested tables included) are detached
+        from autograd: the constant view of a scene that code paths with
+        stopped gradients work on."""
+        changes = {}
+        for f in dataclasses.fields(self):
+            x = getattr(self, f.name)
+            if isinstance(x, (torch.Tensor, _Replace)):
+                changes[f.name] = x.detach()
         return dataclasses.replace(self, **changes)
 
 
@@ -123,6 +142,8 @@ class Scene(_Replace):
 
     vertices: torch.Tensor      # (V,3)
     indices: torch.Tensor       # (T,3) int32
+    face_adj: torch.Tensor      # (T,3) int32 neighbour across edge slot k, -1 open
+    edge_table: torch.Tensor    # (E,5) int32 unique edges: v0, v1, face, nbr, opp
     normals: torch.Tensor       # (V,3) shading normals
     uvs: torch.Tensor           # (V,2)
     tri_material: torch.Tensor  # (T,) int32
@@ -155,6 +176,38 @@ class Scene(_Replace):
         e1 = v[i[:, 1]] - p0
         e2 = v[i[:, 2]] - p0
         return p0, e1, e2
+
+
+def edge_tables(indices: np.ndarray):
+    """(face_adj (T,3), edge_table (E,5)) of an int32 (T,3) index array,
+    built as the JAX package builds them (ir.py:507-537).
+
+    face_adj[f, k] is the face across edge slot k of face f, the edge
+    (indices[f,k], indices[f,(k+1)%3]), or -1 for an open edge. edge_table
+    lists each undirected edge once (an open edge, or the slot of the lower
+    face of a shared pair) as (v0, v1, owning face, neighbour face or -1,
+    the owning face's vertex opposite the edge)."""
+    T = indices.shape[0]
+    edge_v = np.stack([indices[:, [0, 1]], indices[:, [1, 2]],
+                       indices[:, [2, 0]]], axis=1).reshape(-1, 2)
+    ekey = np.sort(edge_v, axis=1)
+    order = np.lexsort((ekey[:, 1], ekey[:, 0]))
+    sk = ekey[order]
+    same = np.all(sk[1:] == sk[:-1], axis=1)
+    face_adj_flat = np.full((3 * T,), -1, np.int32)
+    a = order[:-1][same]
+    b = order[1:][same]
+    face_adj_flat[a] = b // 3
+    face_adj_flat[b] = a // 3
+
+    slot_face = np.repeat(np.arange(T, dtype=np.int32), 3)
+    keep = (face_adj_flat < 0) | (slot_face < face_adj_flat)
+    slot_in_face = np.tile(np.arange(3, dtype=np.int32), T)
+    opp_vert = indices[slot_face, (slot_in_face + 2) % 3]
+    edge_table = np.stack(
+        [edge_v[keep, 0], edge_v[keep, 1], slot_face[keep],
+         face_adj_flat[keep], opp_vert[keep]], axis=1).astype(np.int32)
+    return face_adj_flat.reshape(T, 3), edge_table
 
 
 def build_scene(
@@ -260,9 +313,13 @@ def build_scene(
     tri_opaque = mat_types[np.clip(tri_material, 0, len(mat_types) - 1)] \
         != BSDF_NULL
 
+    face_adj, edge_table = edge_tables(indices)
+
     return Scene(
         vertices=t(vertices),
         indices=t(indices),
+        face_adj=t(face_adj),
+        edge_table=t(edge_table),
         normals=t(normals.astype(np.float32)),
         uvs=t(uvs.astype(np.float32)),
         tri_material=t(tri_material),
@@ -315,7 +372,12 @@ def from_jax(jscene, device="cuda") -> Scene:
                                   "port walks the BVH and has no cluster tables")
     fields = {}
     for f in dataclasses.fields(Scene):
-        if f.name == "bvh":
+        if f.name == "bvh" or f.name in fields:
+            continue
+        if f.name in ("face_adj", "edge_table") and getattr(jscene, f.name, None) is None:
+            # a JAX scene assembled without them: build both here
+            fields["face_adj"], fields["edge_table"] = (
+                _leaf(a, device) for a in edge_tables(np.array(jscene.indices, np.int32)))
             continue
         if f.name == "materials":
             fields[f.name] = Materials(**_tensor_fields(Materials, jscene.materials, device))

@@ -1,9 +1,13 @@
 """The CUDA kernels (brute force, BVH walk) against their plain PyTorch
-versions on the card, and the kernel build. Imports no JAX, so the card's tests run
+versions on the card, alone and inside a reverse-mode step, and the kernel
+build. Imports no JAX, so the card's tests run
 where JAX is absent:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernel.py
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -13,6 +17,8 @@ from mitsuba_tpu_torch.ops import brute_kernel as bk, bvh_kernel as bvk, bvh_tra
 from mitsuba_tpu_torch.scene import builtin
 
 torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture
@@ -207,6 +213,90 @@ def test_bvh_kernel_refuses_bad_input(cuda):
         bvk.closest_key(scene.bvh, o.double(), d, limit)
     with pytest.raises(ValueError, match="contiguous"):
         bvk.blocked(scene.bvh, o, d.T.contiguous().T, limit)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _grads_agree(grads, plain):
+    """Equal up to summation order: the splat's index_put accumulation and
+    the gathers' backward run on atomics, whose order varies. Bar: 1e-4 of
+    each tensor's largest entry."""
+    for g, p in zip(grads, plain):
+        assert torch.isfinite(g).all() and p.abs().max() > 0
+        assert (g - p).abs().max() <= 1e-4 * p.abs().max(), (g - p).abs().max()
+
+
+@pytest.mark.cuda
+def test_grad_through_brute_kernel_equals_plain(cuda):
+    """A reverse-mode step through B1 (Cornell, every closest, shadow and
+    edge query of render_grad) gives the gradient its plain twin gives."""
+    from mitsuba_tpu_torch.integrators import boundary, common
+
+    cs = _chip_smoke()
+    scene, cam = builtin.cornell_box(16, 16, device=cuda)
+    cfg = common.RenderConfig(spp=2, max_depth=3, seed=1)
+    bc = boundary.BoundaryConfig(n_edge=2, n_primary=1024)
+    bk.reset_counts()
+    grads = cs.render_grads(scene, cam, cfg, bc)
+    assert min(bk.KERNEL_LAUNCHES.values()) > 0 and sum(bk.PLAIN_CALLS.values()) == 0
+    with cs.plain_patched(bk):
+        plain = cs.render_grads(scene, cam, cfg, bc)
+    _grads_agree(grads, plain)
+
+
+@pytest.mark.cuda
+def test_grad_through_bvh_kernel_equals_plain(cuda):
+    """The same through B2: sphere_shadow(48, 48), 4,612 triangles with the
+    BVH attached, above the brute-force limit, so every query walks it."""
+    from mitsuba_tpu_torch.integrators import boundary, common
+
+    cs = _chip_smoke()
+    scene, cam, _ = builtin.sphere_shadow(48, 48, width=16, height=16, attach_bvh=True,
+                                          device=cuda)
+    cfg = common.RenderConfig(spp=2, max_depth=2, seed=1)
+    bc = boundary.BoundaryConfig(n_edge=2, n_primary=1024)
+    bvk.reset_counts()
+    bk.reset_counts()
+    grads = cs.render_grads(scene, cam, cfg, bc)
+    assert bvk.KERNEL_LAUNCHES["closest"] > 0 and bvk.KERNEL_LAUNCHES["any_hit"] > 0
+    assert sum(bk.KERNEL_LAUNCHES.values()) == 0 and sum(bvk.PLAIN_CALLS.values()) == 0
+    with cs.plain_patched(bvk):
+        plain = cs.render_grads(scene, cam, cfg, bc)
+    _grads_agree(grads, plain)
+
+
+@pytest.mark.parametrize("mod", [bk, bvk], ids=["brute", "bvh"])
+def test_kept_launches_rerun_through_twins(mod):
+    """The smoke run's check of a gradient step's launches against the
+    plain twins: every entry keeps its first call at each batch size, the
+    rerun in chunks of rays agrees, and a kept result changed in one lane
+    is caught. On the CPU the entries take the plain route."""
+    from mitsuba_tpu_torch.integrators import boundary, common
+
+    cs = _chip_smoke()
+    if mod is bk:
+        scene, cam = builtin.cornell_box(8, 8, device="cpu")
+    else:
+        scene, cam, _ = builtin.sphere_shadow(12, 12, width=8, height=8, attach_bvh=True,
+                                              device="cpu")
+    cfg = common.RenderConfig(spp=2, max_depth=2, seed=1)
+    bc = boundary.BoundaryConfig(n_edge=2, n_primary=256)
+    keeping, kept = cs.keeping_launches(mod)
+    with keeping:
+        cs.render_grads(scene, cam, cfg, bc)
+    checked = cs.check_kept(mod, kept, chunk=100)
+    assert set(checked) == {"closest_key", "any_hit" if mod is bk else "blocked"}
+    assert all(len(v) >= 2 for v in checked.values()), checked   # camera and edge rays
+    (entry, n), (_, outs) = max(kept.items(), key=lambda kv: kv[0][1])
+    assert n > 100
+    outs[0][n // 2] = ~outs[0][n // 2] if outs[0].dtype == torch.bool else outs[0][n // 2] + 1
+    with pytest.raises(AssertionError, match=f"{entry} at {n} rays: 1 results differ"):
+        cs.check_kept(mod, kept, chunk=100)
 
 
 def test_build_flags_and_missing_compiler(monkeypatch, tmp_path):
