@@ -16,8 +16,19 @@ differences, an inverse recovery on the mesh, and the headline gradient
 (Cornell 256x256, 16 spp, an L2 loss through boundary.render_grad) timed,
 with its peak memory and device busy share; in the mesh and headline
 steps, one launch of each kernel entry at each batch size the step takes
-is rerun through the plain twin, bit for bit. Every phase prints one line;
-any failure raises, so the exit code is non-zero.
+is rerun through the plain twin, bit for bit. Then the materials and
+lighting slice, all through the brute-force kernel: the veach_mis and
+envmap_textured goldens and both caustic_box mirrors; the Veach MIS sweep
+at 256x192, 64 spp, depth 3, through the wavefront (timed, useful rays/s,
+busy share) and a small render through the wavefront and path.li, equal
+within 1e-5; the textured quad at 256x256, 64 spp, with a 1,024x1,024
+mipped texture (trilinear and EWA lookups) under a 512x1,024 environment
+map, and the map's total radiance by importance sampling; the roughness
+and texel gradients against finite differences. In each of these, too,
+one launch per kernel entry and batch size is rerun through the twin.
+Every phase prints one line; any failure raises, so the exit code is
+non-zero. The line [total] gives the whole script's seconds and those of
+the materials phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -1314,6 +1325,323 @@ def phase_grad_headline(dev, spp):
     return launches
 
 
+# --- materials and lighting -------------------------------------------------
+
+# tools/golden_scenes.py's envmap_textured geometry: a unit quad in y = 0 with
+# uvs, seen from above at 40 degrees (also the quad of
+# tests/test_baseline_configs.py:42's OBJ)
+TEXTURED_QUAD = (np.asarray([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1]], np.float32),
+                 np.asarray([[0, 2, 1], [0, 3, 2]], np.int32),
+                 np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32))
+TEXTURED_QUAD_CAMERA = dict(origin=[0, 2, -3], target=[0, 0, 0], fov_x=40)
+# BASELINE's "Veach MIS microfacet sweep" sampling and the full envmap cell
+VEACH_SPP = ENVMAP_SPP = 64
+VEACH_DEPTH = ENVMAP_DEPTH = 3
+# FD protocols: tests/test_grad_coverage.py:60-90 (roughness: AD 48 spp, FD
+# 192 spp, eps 0.05, 15%) and tests/test_baseline_configs.py:42-77 (texel
+# [0, 3, 3, 1]: 16 spp, eps 1e-2, 5%); tests/test_envmap.py:54 (2%)
+ROUGH_FD_RTOL = 0.15
+TEXEL_FD_RTOL = 0.05
+ENV_TOTAL_RTOL = 2e-2
+
+
+def golden_textures():
+    """The envmap_textured golden's 8x8 texture and 8x16 envmap (numpy seed 0)."""
+    rng = np.random.RandomState(0)
+    tex = rng.uniform(0.2, 0.9, (8, 8, 3)).astype(np.float32)
+    return tex, rng.uniform(0.0, 2.0, (8, 16, 3)).astype(np.float32)
+
+
+def lod_scale(cam):
+    """The world width of one pixel at unit distance (the JAX loader's
+    `_lod_scale`, scene/xml.py:1433)."""
+    return 2.0 * float(np.tan(np.deg2rad(float(cam.fov_x)) / 2.0)) / max(cam.width, 1)
+
+
+def textured_quad(dev, tex, env, width, height, mips=False):
+    """The envmap_textured scene: TEXTURED_QUAD, diffuse with texture `tex`,
+    under the lat-long map `env`; mips=True builds the mip strip for this
+    camera (trilinear and EWA lookups). Returns (scene, camera)."""
+    from mitsuba_tpu_torch.models import sensor
+    from mitsuba_tpu_torch.scene import envmap, ir
+
+    cam = sensor.make_camera(**TEXTURED_QUAD_CAMERA, width=width, height=height, device=dev)
+    verts, tris, uvs = TEXTURED_QUAD
+    scene = ir.build_scene(verts, tris, np.zeros(2, np.int32),
+                           [{"type": ir.BSDF_DIFFUSE, "tex_reflectance": 0}], uvs=uvs,
+                           textures=[{"data": tex}],
+                           lod_scale=lod_scale(cam) if mips else None, device=dev)
+    return envmap.attach_envmap(scene, env), cam
+
+
+def roughness_scene(dev):
+    """tests/test_grad_coverage.py:60's scene: a 0.25-rough conductor floor
+    under a quad light, 16x16."""
+    from mitsuba_tpu_torch.models import sensor
+    from mitsuba_tpu_torch.scene import ir
+
+    verts = np.asarray([[-2, 0, -2], [-2, 0, 2], [2, 0, 2], [2, 0, -2],
+                        [-0.4, 1.5, -0.4], [0.4, 1.5, -0.4], [0.4, 1.5, 0.4],
+                        [-0.4, 1.5, 0.4]], np.float32)
+    tris = np.asarray([[0, 1, 2], [0, 2, 3], [4, 5, 6], [4, 6, 7]], np.int32)
+    scene = ir.build_scene(verts, tris, np.zeros(4, np.int32),
+                           [{"type": ir.BSDF_ROUGH_CONDUCTOR, "alpha": [0.25, 0.25],
+                             "eta": [0.2, 0.92, 1.1], "k": [3.9, 2.45, 2.14]}],
+                           tri_radiance={2: [8.0] * 3, 3: [8.0] * 3}, device=dev)
+    cam = sensor.make_camera(origin=[0, 1.0, 2.5], target=[0, 0, 0], fov_x=50.0,
+                             width=16, height=16, device=dev)
+    return scene, cam
+
+
+def counted():
+    """(context, read): zero B1's counts, keep the first launch of each
+    entry at each batch size (keeping_launches); read() -> (launches,
+    plain calls, kept)."""
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+
+    bk.reset_counts()
+    keeping, kept = keeping_launches(bk)
+
+    def read():
+        return dict(bk.KERNEL_LAUNCHES), dict(bk.PLAIN_CALLS), kept
+    return keeping, read
+
+
+def require_b1(what, launches, plain):
+    if min(launches.values()) == 0 or any(plain.values()):
+        raise AssertionError(f"{what} bypassed B1: launches {launches}, plain calls {plain}")
+
+
+def phase_golden_materials(dev):
+    """tools/golden_scenes.py's veach_mis (48x36, 64 spp, depth 3, seed 7)
+    and envmap_textured (24x24) configs through path.li on the card,
+    against tests/golden/*.npy at the golden bar (check_golden); caustic_box
+    with a delta mirror and with a rough Beckmann one renders finite. B1
+    carries every search; one launch of each entry at each batch size is
+    rerun through its twin (check_kept)."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import builtin
+
+    cfg = common.RenderConfig(spp=64, max_depth=3, seed=7)
+    keeping, read = counted()
+    with keeping:
+        veach = common.render(*builtin.veach_mis(48, 36, device=dev), path.li, cfg)
+        textured = common.render(*textured_quad(dev, *golden_textures(), 24, 24), path.li, cfg)
+        caustic = {rough: common.render(*builtin.caustic_box(64, 64, rough=rough, device=dev),
+                                        path.li, common.RenderConfig(spp=16, max_depth=6, seed=0))
+                   for rough in (False, True)}
+    launches, plain, kept = read()
+    out = {}
+    for name, img in (("veach_mis", veach), ("envmap_textured", textured)):
+        flips, max_diff = check_golden(img.cpu().numpy(),
+                                       np.load(ROOT / "tests" / "golden" / f"{name}.npy"))
+        out[name] = {"pixels_off": flips, "max_abs_diff": max_diff}
+    for rough, img in caustic.items():
+        if not bool(torch.isfinite(img).all()) or not float(img.mean()) > 0.01:
+            raise AssertionError(f"caustic_box rough={rough}: mean {float(img.mean())}")
+    require_b1("golden_materials", launches, plain)
+    checked = check_kept(bk, kept)
+    say("golden_materials", **out,
+        caustic_box_mean={f"rough={r}": round(float(im.mean()), 6) for r, im in caustic.items()},
+        b1_launches=launches, twin_checked_rays=checked, twin_mismatches=0)
+
+
+def timed(fn, dev):
+    import torch
+
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def render_cell(name, scene, cam, cfg, lanes, dev):
+    """One full-size render through the wavefront, counted: render_s,
+    useful rays/s (path.li_with_stats on 8 spp of every pixel), B1's
+    launches (zeroed just before the render, read just after; the first
+    launch per entry and batch size rerun through the twin), and the
+    device busy share of a profiled 4-spp render. Returns (image, the
+    render's B1 launches)."""
+    import dataclasses
+
+    from mitsuba_tpu_torch.integrators import wavefront
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+
+    keeping, read = counted()
+    with keeping:
+        img, render_s = timed(lambda: wavefront.render(scene, cam, cfg, lanes_per_pixel=lanes), dev)
+    launches, plain, kept = read()
+    require_b1(f"{name} render", launches, plain)
+    checked = check_kept(bk, kept)
+    rays_per_sample = useful_rays_per_sample(scene, cam, cfg, count_spp=8)
+    useful = rays_per_sample * cam.width * cam.height * cfg.spp
+    say(name, resolution=f"{cam.width}x{cam.height}", spp=cfg.spp, max_depth=cfg.max_depth,
+        lanes=lanes, tris=scene.num_triangles, render_s=round(render_s, 4),
+        rays_per_sample=round(rays_per_sample, 4), useful_rays_per_s=round(useful / render_s),
+        mean_radiance=round(float(img.mean()), 6), b1_launches=launches, b1_plain_calls=plain,
+        twin_checked_rays=checked, twin_mismatches=0)
+    phase_profile(name, scene, cam, dataclasses.replace(cfg, spp=4), lanes_per_pixel=lanes)
+    return img, launches
+
+
+def phase_veach(dev, lanes=4):
+    """veach_mis at the builtin's 256x192, 64 spp, depth 3 (BASELINE's Veach
+    MIS sweep) through the wavefront (render_cell); the image finite, the
+    plate band lit (tests/test_baseline_configs.py:29). Then 64x48 x 16 spp
+    through the wavefront and through common.render(path.li): equal within
+    1e-5 (tests/test_wavefront.py:9). Returns B1's launches."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common, path, wavefront
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.veach_mis(device=dev)
+    cfg = common.RenderConfig(spp=VEACH_SPP, max_depth=VEACH_DEPTH, seed=0)
+    img, launches = render_cell("veach", scene, cam, cfg, lanes, dev)
+    plates = float(img[cam.height * 14 // 36:cam.height * 26 // 36].mean())
+    small, cam_s = builtin.veach_mis(64, 48, device=dev)
+    cfg_s = common.RenderConfig(spp=16, max_depth=VEACH_DEPTH, seed=1)
+    diff = float((wavefront.render(small, cam_s, cfg_s)
+                  - common.render(small, cam_s, path.li, cfg_s)).abs().max())
+    say("veach_check", plate_band_mean=round(plates, 6), wavefront_vs_path_max_abs_diff=diff)
+    if not bool(torch.isfinite(img).all()) or tuple(img.shape) != (cam.height, cam.width, 3) \
+            or not float(img.mean()) > 0.01 or not plates > 0.01 or not diff <= 1e-5:
+        raise AssertionError(f"veach: mean {float(img.mean())}, plates {plates}, "
+                             f"wavefront vs path {diff}")
+    return launches
+
+
+def phase_envmap_textured(dev, width=256, lanes=4):
+    """The envmap_textured geometry at width x width, 64 spp, depth 3, with a
+    1,024x1,024 texture and its mips (trilinear lookups, and EWA at the
+    primary hit from the camera's ray differentials) under a 512x1,024
+    envmap, both drawn with numpy from seed 0, through the wavefront
+    (render_cell). Then tests/test_envmap.py:54's total-radiance protocol
+    on that map (2^18 importance samples against the map's quadrature,
+    2%). Returns B1's launches."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common
+    from mitsuba_tpu_torch.scene import envmap
+
+    rng = np.random.RandomState(0)
+    tex = rng.uniform(0.2, 0.9, (1024, 1024, 3)).astype(np.float32)
+    env = rng.uniform(0.0, 2.0, (512, 1024, 3)).astype(np.float32)
+    scene, cam = textured_quad(dev, tex, env, width, width, mips=True)
+    cfg = common.RenderConfig(spp=ENVMAP_SPP, max_depth=ENVMAP_DEPTH, seed=0)
+    img, launches = render_cell("envmap_textured", scene, cam, cfg, lanes, dev)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    _, pdf, rad = envmap.sample_direction(scene.envmap,
+                                          torch.rand((1 << 18, 2), generator=gen, device=dev))
+    est = (rad / pdf[:, None]).mean(0).cpu().numpy()
+    h, w = env.shape[:2]
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    ref = (env * (np.sin(theta)[:, None, None] * (np.pi / h) * (2 * np.pi / w))).sum((0, 1))
+    rel = float(np.abs(est / ref - 1.0).max())
+    say("envmap_check", total_radiance=est.round(5).tolist(), quadrature=ref.round(5).tolist(),
+        rel_err=round(rel, 6), bar=ENV_TOTAL_RTOL, mips_shape=list(scene.tex_mips.shape))
+    if not bool(torch.isfinite(img).all()) or not float(img.mean()) > 0.01 \
+            or not rel <= ENV_TOTAL_RTOL:
+        raise AssertionError(f"envmap_textured: mean {float(img.mean())}, total radiance "
+                             f"{est} against {ref}")
+    return launches
+
+
+def fd_step(loss, x, dev):
+    """(value, gradient, forward s, backward s, peak GB) of loss(x) with x
+    requiring grad; the peak counts from the step's start."""
+    import torch
+
+    x = x.detach().clone().requires_grad_(True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    val, fwd_s = timed(lambda: loss(x), dev)
+    _, bwd_s = timed(val.backward, dev)
+    return float(val.detach()), x.grad, fwd_s, bwd_s, torch.cuda.max_memory_allocated(dev) / 1e9
+
+
+def phase_grad_materials(dev):
+    """The gradients of this slice on the card, against central finite
+    differences at their tests' bars. Roughness (tests/test_grad_coverage.py:60):
+    the floor's alpha at 0.25, AD at 48 spp, FD at 192 spp, eps 0.05,
+    within 15%. Texel (tests/test_baseline_configs.py:42): the envmap-lit
+    textured quad (12x12, 16 spp, depth 2), texel [0, 3, 3, 1], eps 1e-2,
+    within 5%. Forward and backward seconds, peak memory, the device time
+    of torch's indexing backward in the texel step, B1's launches (first
+    launch per entry and batch size rerun through the twin); every
+    gradient finite. Returns B1's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+
+    scene, cam = roughness_scene(dev)
+
+    def rough_loss(spp):
+        cfg = common.RenderConfig(spp=spp, max_depth=2, seed=7)
+
+        def loss(alpha):
+            tab = torch.cat([alpha.reshape(1, 1).expand(1, 2), scene.materials.alpha[1:]])
+            s = scene.replace(materials=scene.materials.replace(alpha=tab))
+            return common.render(s, cam, path.li, cfg).mean()
+        return loss
+
+    quad, qcam = textured_quad(dev, np.full((8, 8, 3), 0.5, np.float32),
+                               np.ones((8, 16, 3), np.float32), 12, 12)
+    qcfg = common.RenderConfig(spp=16, max_depth=2, seed=0)
+
+    def texel_loss(texels):
+        return common.render(quad.replace(textures=texels), qcam, path.li, qcfg).mean()
+
+    keeping, read = counted()
+    with keeping:
+        _, g_r, fwd_r, bwd_r, peak_r = fd_step(rough_loss(48), torch.tensor(0.25, device=dev), dev)
+        _, g_t, fwd_t, bwd_t, peak_t = fd_step(texel_loss, quad.textures, dev)
+    launches, plain, kept = read()
+    checked = check_kept(bk, kept)
+    with torch.no_grad():
+        fd_r = (float(rough_loss(192)(torch.tensor(0.30, device=dev)))
+                - float(rough_loss(192)(torch.tensor(0.20, device=dev)))) / 0.1
+        e = torch.zeros_like(quad.textures)
+        e[0, 3, 3, 1] = 1e-2
+        fd_t = (float(texel_loss(quad.textures + e)) - float(texel_loss(quad.textures - e))) / 2e-2
+    g_r, g_t3 = float(g_r), float(g_t[0, 3, 3, 1])
+    # the texel step's backward under the profiler: torch's indexing backward
+    x = quad.textures.detach().clone().requires_grad_(True)
+    val = texel_loss(x)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        val.backward()
+        torch.cuda.synchronize(dev)
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [ev for ev in prof.key_averages() if ev.device_type == cuda]
+    idx_ms = sum(ev.device_time_total for ev in kernels if "indexing_backward" in ev.key) / 1e3
+    finite = bool(np.isfinite(g_r)) and bool(torch.isfinite(g_t).all())
+    say("grad_materials", roughness_ad=round(g_r, 6), roughness_fd=round(fd_r, 6),
+        roughness_rel_err=round(abs(g_r - fd_r) / abs(fd_r), 5), roughness_bar=ROUGH_FD_RTOL,
+        texel_ad=round(g_t3, 6), texel_fd=round(fd_t, 6),
+        texel_rel_err=round(abs(g_t3 - fd_t) / max(abs(fd_t), 1e-12), 5),
+        texel_bar=TEXEL_FD_RTOL, texel_grad_abs_max=float(g_t.abs().max()),
+        forward_s={"roughness": round(fwd_r, 4), "texel": round(fwd_t, 4)},
+        backward_s={"roughness": round(bwd_r, 4), "texel": round(bwd_t, 4)},
+        peak_gb={"roughness": round(peak_r, 4), "texel": round(peak_t, 4)},
+        texel_backward_device_ms=round(sum(ev.device_time_total for ev in kernels) / 1e3, 4),
+        indexing_backward_ms=round(idx_ms, 4), b1_launches=launches, b1_plain_calls=plain,
+        twin_checked_rays=checked, twin_mismatches=0, finite=finite)
+    require_b1("grad_materials", launches, plain)
+    if not finite or not abs(fd_r) > 1e-6 \
+            or abs(g_r - fd_r) > ROUGH_FD_RTOL * abs(fd_r) + 1e-5 \
+            or abs(g_t3 - fd_t) > TEXEL_FD_RTOL * abs(fd_t) + 1e-5 \
+            or not float(g_t.abs().max()) > 1e-5:
+        raise AssertionError(f"material gradients: roughness {g_r} against FD {fd_r}, "
+                             f"texel {g_t3} against FD {fd_t}, finite {finite}")
+    return launches
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1324,6 +1652,7 @@ def main(argv=None) -> int:
                     help="build and run the kernel phases only (no renders); "
                          "prints no result line")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
               file=sys.stderr)
@@ -1368,6 +1697,14 @@ def main(argv=None) -> int:
     paths["grad_mesh"] = {f"bvh_{k}": v for k, v in phase_grad_mesh(dev).items()}
     paths["grad_headline"] = {f"brute_{k}": v
                               for k, v in phase_grad_headline(dev, GRAD_HEADLINE_SPP).items()}
+    t_materials = time.perf_counter()
+    phase_golden_materials(dev)
+    for path, phase in (("veach_render", phase_veach), ("envmap_render", phase_envmap_textured),
+                        ("grad_materials", phase_grad_materials)):
+        paths[path] = {f"brute_{k}": v for k, v in phase(dev).items()}
+    t_end = time.perf_counter()
+    say("total", seconds=round(t_end - t_start, 3),
+        materials_seconds=round(t_end - t_materials, 3))
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

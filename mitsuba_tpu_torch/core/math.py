@@ -73,3 +73,85 @@ def cos_theta(v):
 
 def abs_cos_theta(v):
     return torch.abs(v[..., 2])
+
+
+def sin_theta2(v):
+    return torch.clamp_min(1.0 - v[..., 2] * v[..., 2], 0.0)
+
+
+def sin_theta(v):
+    return torch.sqrt(sin_theta2(v))
+
+
+def tan_theta(v):
+    return safe_div(sin_theta(v), v[..., 2])
+
+
+def sin_phi(v):
+    s = sin_theta(v)
+    return torch.where(s < 1e-9, 0.0, torch.clamp(safe_div(v[..., 1], s), -1.0, 1.0))
+
+
+def cos_phi(v):
+    s = sin_theta(v)
+    return torch.where(s < 1e-9, 1.0, torch.clamp(safe_div(v[..., 0], s), -1.0, 1.0))
+
+
+def reflect_local(wi: torch.Tensor) -> torch.Tensor:
+    """Mirror reflection in the local frame (z = normal)."""
+    return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+
+
+def refract_local(wi: torch.Tensor, eta: torch.Tensor, cos_theta_t: torch.Tensor):
+    """Refraction in the local frame given the transmitted cosine; eta is
+    the relative IOR of the actual transmission direction."""
+    scale = torch.where(cos_theta_t < 0.0, 1.0 / eta, eta)
+    return torch.stack([-wi[..., 0] * scale, -wi[..., 1] * scale, cos_theta_t], dim=-1)
+
+
+def fresnel_dielectric(cos_theta_i: torch.Tensor, eta):
+    """Exact unpolarised dielectric Fresnel. eta = int_ior / ext_ior,
+    cos_theta_i signed (positive = outside). Returns (F, cos_theta_t,
+    eta_it, eta_ti)."""
+    outside = cos_theta_i >= 0.0
+    eta_it = torch.where(outside, eta, 1.0 / eta)
+    eta_ti = 1.0 / eta_it
+    cti = torch.abs(cos_theta_i)
+    sin2_t = eta_ti * eta_ti * torch.clamp_min(1.0 - cti * cti, 0.0)
+    tir = sin2_t >= 1.0
+    cos_t = safe_sqrt(1.0 - sin2_t)
+    r_s = safe_div(cti - eta_it * cos_t, cti + eta_it * cos_t)
+    r_p = safe_div(eta_it * cti - cos_t, eta_it * cti + cos_t)
+    f = torch.where(tir, 1.0, 0.5 * (r_s * r_s + r_p * r_p))
+    return f, torch.where(outside, -cos_t, cos_t), eta_it, eta_ti
+
+
+def fresnel_conductor(cos_theta_i: torch.Tensor, eta: torch.Tensor, k: torch.Tensor):
+    """Unpolarised conductor Fresnel; eta, k: (..., 3), cos_theta_i: (...)."""
+    c2 = (cos_theta_i * cos_theta_i)[..., None]
+    s2 = 1.0 - c2
+    e2 = eta * eta
+    k2 = k * k
+    t0 = e2 - k2 - s2
+    a2b2 = safe_sqrt(t0 * t0 + 4.0 * e2 * k2)
+    t1 = a2b2 + c2
+    a = safe_sqrt(0.5 * (a2b2 + t0))
+    t2 = 2.0 * a * torch.abs(cos_theta_i)[..., None]
+    rs = safe_div(t1 - t2, t1 + t2)
+    t3 = c2 * a2b2 + s2 * s2
+    t4 = t2 * s2
+    rp = rs * safe_div(t3 - t4, t3 + t4)
+    return 0.5 * (rp + rs)
+
+
+def fresnel_diffuse_reflectance(eta: torch.Tensor) -> torch.Tensor:
+    """Polynomial fit of the diffuse Fresnel reflectance."""
+    above = -1.4399 / (eta * eta) + 0.7099 / eta + 0.6681 + 0.0636 * eta
+    inv_eta = 1.0 / eta
+    inv_eta2 = inv_eta * inv_eta
+    inv_eta3 = inv_eta2 * inv_eta
+    inv_eta4 = inv_eta3 * inv_eta
+    inv_eta5 = inv_eta4 * inv_eta
+    below = (0.919317 - 3.4793 * inv_eta + 6.75335 * inv_eta2
+             - 7.80989 * inv_eta3 + 4.98554 * inv_eta4 - 1.36881 * inv_eta5)
+    return torch.where(eta < 1.0, below, above)

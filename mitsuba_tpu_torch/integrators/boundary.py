@@ -220,8 +220,7 @@ def nee_boundary(scene, p, ns, sp, wi_local, families, u_edge, edge_w=None,
 
     # BSDF factor at p toward w (the receiver cosine included)
     wo_local = m.to_local(torch.repeat_interleave(ns.detach(), M, dim=0), w)
-    sp_rep = bsdflib.ShadePoint(*(torch.repeat_interleave(a.detach(), M, dim=0)
-                                  for a in sp))
+    sp_rep = bsdflib.map_tensors(lambda a: torch.repeat_interleave(a.detach(), M, dim=0), sp)
     f_val, _ = bsdflib.eval_pdf(sp_rep, torch.repeat_interleave(wi_local.detach(), M, dim=0),
                                 wo_local, families)
 
@@ -303,7 +302,7 @@ def _nee_once(sc, si, its, u3, families):
     ds = emitterlib.sample_direct(sc, si["p"], u3)
     wi_l = m.to_local(si["ns"], si["wi_world"])
     wo_l = m.to_local(si["ns"], ds.d)
-    sp = bsdflib.gather_shade_point(sc, si["mat"], si["uv"])
+    sp = bsdflib.gather_shade_point(sc, si["mat"], si["uv"], u_blend=u3[:, 2], aux=si)
     f_val, _ = bsdflib.eval_pdf(sp, wi_l, wo_l, families)
     blocked = trace.shadow_blocked(sc, si["p"], ds.d, ds.dist)
     nee = f_val * ds.radiance * m.safe_div(torch.ones_like(ds.pdf), ds.pdf)[:, None]
@@ -359,7 +358,8 @@ def li_grad(scene, cam, o, d, stream, cfg: RenderConfig,
         active = active & its.valid
         ns = si["ns"]
         wi_local = m.to_local(ns, si["wi_world"])
-        sp = bsdflib.gather_shade_point(sc, si["mat"], si["uv"])
+        sp = bsdflib.gather_shade_point(sc, si["mat"], si["uv"],
+                                        u_blend=bounce_u(t, 7), aux=si)
         if t < cfg.max_depth - 1:
             bterm = nee_boundary(scene, si["p"], ns, sp, wi_local, families,
                                  edge_u(0, t), edge_w=edge_w, u_la=la_u(t))

@@ -42,7 +42,7 @@ def li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig) -> torch.Tenso
     if not cfg.hide_emitters:
         L = L + torch.where(vis[:, None], le, 0.0)
 
-    sp = bsdflib.gather_shade_point(scene, si["mat"], si["uv"])
+    sp = bsdflib.gather_shade_point(scene, si["mat"], si["uv"], u_blend=u(6), aux=si)
 
     # --- strategy 1: emitter sampling ---------------------------------
     ds = emitterlib.sample_direct(scene, p, torch.stack([u(0), u(1), u(2)], -1))

@@ -8,7 +8,8 @@ unrolled twin of the regenerative wavefront renderer, and it counts the
 useful rays of the rays/s benchmark.
 
 Sampler dims: 4 are consumed by the sensor (common.py); each bounce
-consumes a fixed window of 8 dims.
+consumes a fixed window of 8 dims: NEE 0-2, the BSDF lobe 3, its direction
+4-5, Russian roulette 6 and the blend adapter's choice 7.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from ..core import math as m
 from ..core.rng import SampleStream
 from ..models import bsdf as bsdflib
 from ..models import emitter as emitterlib
+from ..models import sensor as sensorlib
 from ..ops import trace
 from ..scene import ir as _ir
 from .common import RenderConfig, mis_weight
@@ -51,7 +53,14 @@ def _li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         rays = rays + active.sum()
 
         its = trace.closest_hit(scene, o, d)
-        si = trace.surface_interaction(scene, o, d, its)
+        if scene.tex_mips is not None and t == 0:
+            # EWA's uv partials on the primary hit; later bounces keep the
+            # isotropic trilinear footprint (the JAX package zeroes their
+            # differentials, which selects the same lookup)
+            ddx, ddy = sensorlib.ray_differentials(cam, d)
+            si = trace.surface_interaction(scene, o, d, its, dd_dx=ddx, dd_dy=ddy)
+        else:
+            si = trace.surface_interaction(scene, o, d, its)
         ns, ng, p = si["ns"], si["ng"], si["p"]
         wi_local = m.to_local(ns, si["wi_world"])
 
@@ -82,7 +91,8 @@ def _li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         # vertex t+1 just handled; continuing needs t + 2 <= max_depth edges
         can_continue = t < (cfg.max_depth - 1)
 
-        sp = bsdflib.gather_shade_point(scene, si["mat"], si["uv"])
+        sp = bsdflib.gather_shade_point(scene, si["mat"], si["uv"],
+                                        u_blend=bounce_u(t, 7), aux=si)
 
         # --- next event estimation ----------------------------------------
         u_nee = torch.stack([bounce_u(t, 0), bounce_u(t, 1), bounce_u(t, 2)], -1)

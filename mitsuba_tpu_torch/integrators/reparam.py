@@ -287,7 +287,8 @@ def li_reparam(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         L = L + torch.where(active[:, None], beta_thr * le * w_bsdf[:, None], 0.0)
 
         can_continue = t < (cfg.max_depth - 1)
-        sp = bsdflib.gather_shade_point(scene, si["mat"], si["uv"])
+        sp = bsdflib.gather_shade_point(scene, si["mat"], si["uv"],
+                                        u_blend=bounce_u(t, 7), aux=si)
 
         # --- NEE with a warped shadow direction ---------------------------
         u_nee = torch.stack([bounce_u(t, 0), bounce_u(t, 1), bounce_u(t, 2)], -1)

@@ -5,7 +5,10 @@ One lane per (pixel, lane slot). The moment a path terminates (miss, depth
 cap, Russian roulette) its radiance is banked and the lane starts the
 pixel's next sample in place, so the batch stays nearly full. The estimator
 and the sample streams are path.li's: the same (pixel, sample, dim) hashing,
-with the independent sampler.
+with the independent sampler. On scenes with texture mips that includes
+path.li's EWA lookups at the primary hit, from the camera's ray
+differentials (the JAX wavefront omits them and filters every hit
+trilinearly; ROADMAP C26).
 
 The JAX package runs the steps in one lax.while_loop; here a Python loop
 reads one flag from the device per step to decide whether to go on.
@@ -135,7 +138,15 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
             its = trace.closest_hit(scene, o, d)
             L_accum_in = s["L_accum"]
             L_path = s["L_path"]
-        si = trace.surface_interaction(scene, o, d, its)
+        if scene.tex_mips is not None:
+            # EWA's uv partials on the lanes at their primary hit, zero
+            # (the trilinear footprint) elsewhere: path.li's lookups
+            primary = (t == 0)[:, None]
+            ddx, ddy = (torch.where(primary, dd, 0.0)
+                        for dd in sensorlib.ray_differentials(cam, d))
+            si = trace.surface_interaction(scene, o, d, its, dd_dx=ddx, dd_dy=ddy)
+        else:
+            si = trace.surface_interaction(scene, o, d, its)
         ns, ng, p = si["ns"], si["ng"], si["p"]
         wi_local = m.to_local(ns, si["wi_world"])
         beta = s["beta"]
@@ -166,7 +177,7 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
         L_path = L_path + torch.where(hit[:, None], beta * le * w_bsdf[:, None], 0.0)
 
         can_continue = t < (cfg.max_depth - 1)
-        sp = bsdflib.gather_shade_point(scene, si["mat"], si["uv"])
+        sp = bsdflib.gather_shade_point(scene, si["mat"], si["uv"], u_blend=bu(7), aux=si)
 
         # NEE
         u_nee = torch.stack([bu(0), bu(1), bu(2)], -1)

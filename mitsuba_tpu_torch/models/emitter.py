@@ -1,12 +1,15 @@
-"""Emitter sampling: area lights and a constant environment (port of the
-parts of models/emitter.py the path tracer calls).
+"""Emitter sampling: area lights and the environment, constant or a
+lat-long map (port of the parts of models/emitter.py the path tracer
+calls).
 
 NEE draws an emissive triangle from a luminance-weighted CDF, a uniform
-point on it, and converts the area pdf to solid angle. Delta emitters and
-environment maps are not ported: the port's Scene has no field for them
-(`scene.ir.from_jax` refuses a scene that carries one). Row fetches are plain
-indexing: the JAX package's one-hot matmul (ops/gather.py) exists only
-because row gathers are slow on a TPU.
+point on it, and converts the area pdf to solid angle; the environment
+branch importance-samples `scene.envmap` (scene/envmap.py) where the scene
+has one, else the sphere uniformly. Delta emitters are not ported: the
+port's Scene has no field for them (`scene.ir.from_jax` refuses a scene
+that carries one). Row fetches are plain indexing: the JAX package's
+one-hot matmul (ops/gather.py) exists only because row gathers are slow on
+a TPU.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from ..core import math as m
 from ..core import warp
+from ..scene import envmap as envlib
 
 
 class DirectSample(NamedTuple):
@@ -83,16 +87,18 @@ def sample_direct(scene, ref_p: torch.Tensor, u3: torch.Tensor) -> DirectSample:
     pdf = pdf_area_sa * pg_area
     is_delta = torch.zeros((n,), dtype=torch.bool, device=dev)
 
-    # --- constant environment branch -----------------------------------
+    # --- environment branch -------------------------------------------
     if scene.has_env:
-        d_env = warp.square_to_uniform_sphere(u3[..., 1:3])
-        rad_env = scene.env_radiance.expand(n, 3)
+        if scene.envmap is not None:
+            d_env, pdf_env, rad_env = envlib.sample_direction(scene.envmap, u3[..., 1:3])
+        else:
+            d_env = warp.square_to_uniform_sphere(u3[..., 1:3])
+            pdf_env = torch.full_like(pdf, warp.square_to_uniform_sphere_pdf())
+            rad_env = scene.env_radiance.expand(n, 3)
         d = torch.where(pick_env[:, None], d_env, d)
         dist = torch.where(pick_env, m.INF * 0.1, dist)
         rad = torch.where(pick_env[:, None], rad_env, rad)
-        pdf = torch.where(pick_env,
-                          torch.full_like(pdf, warp.square_to_uniform_sphere_pdf())
-                          * env_p, pdf)
+        pdf = torch.where(pick_env, pdf_env * env_p, pdf)
     return DirectSample(d=d, dist=dist, radiance=rad, pdf=pdf,
                         is_env=pick_env, is_delta=is_delta)
 
@@ -114,6 +120,8 @@ def pdf_direct_env(scene, d: torch.Tensor) -> torch.Tensor:
     if not scene.has_env:
         return torch.zeros(d.shape[:-1], dtype=torch.float32, device=d.device)
     _, env_p, _ = _group_probs(scene)
+    if scene.envmap is not None:
+        return envlib.pdf_direction(scene.envmap, d) * env_p
     return torch.full(d.shape[:-1], warp.square_to_uniform_sphere_pdf() * env_p,
                       dtype=torch.float32, device=d.device)
 
@@ -122,4 +130,6 @@ def env_radiance(scene, d: torch.Tensor) -> torch.Tensor:
     """Environment emission for escaped rays."""
     if not scene.has_env:
         return torch.zeros(d.shape[:-1] + (3,), dtype=d.dtype, device=d.device)
+    if scene.envmap is not None:
+        return envlib.eval_radiance(scene.envmap, d)
     return scene.env_radiance.expand(d.shape[:-1] + (3,))

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import math as m
+from ..models import texture as tex
 
 SHADOW_EPS = 1e-3
 # barycentric slack: rays through shared edges cannot slip between both
@@ -147,15 +148,76 @@ def occluded_brute(scene, o: torch.Tensor, d: torch.Tensor,
     return brute_kernel.any_hit(tris, scene.tri_opaque.contiguous(), o, d, limit)
 
 
-def surface_interaction(scene, o, d, its: Intersection):
+def _perturb_normal(scene, mat, uv, t0, t1, t2, e1, e2, ns, ng):
+    """Normal and bump mapping (the normalmap/bumpmap adapters folded into
+    the hit, JAX intersect.py:394-458): perturb the interpolated shading
+    normal once here, and every integrator picks it up through si["ns"].
+
+    normalmap (kind 1): tangent-space RGB in [0,1], n = 2c - 1 in the
+    (dpdu, dpdv, ns) frame. bumpmap (kind 2): height h(u,v); the displaced
+    partials dp/du + dh/du ns and dp/dv + dh/dv ns give the new normal.
+    """
+    mats = scene.materials
+    tid = mats.tex_perturb[mat]
+    kind = mats.perturb_kind[mat]
+    tsafe = torch.clamp_min(tid, 0)
+
+    # uv-space tangent solve on the winning triangle: dp/du, dp/dv
+    duv1 = t1 - t0
+    duv2 = t2 - t0
+    det = duv1[:, 0] * duv2[:, 1] - duv1[:, 1] * duv2[:, 0]
+    bad = torch.abs(det) < 1e-12
+    inv = torch.where(bad, 0.0, 1.0 / torch.where(bad, 1.0, det))[:, None]
+    dpdu = (e1 * duv2[:, 1:2] - e2 * duv1[:, 1:2]) * inv
+    dpdv = (e2 * duv1[:, 0:1] - e1 * duv2[:, 0:1]) * inv
+    # degenerate uvs: any orthonormal tangent frame will do
+    fu, fv = m.coordinate_system(ns)
+    dpdu = torch.where(bad[:, None], fu, dpdu)
+    dpdv = torch.where(bad[:, None], fv, dpdv)
+
+    # normal map: the tangent-space normal rotated into world space
+    ntex = 2.0 * tex.sample_bilinear(scene, tsafe, uv) - 1.0
+    t_hat = m.normalize(dpdu - ns * m.dot(ns, dpdu, keepdims=True))
+    b_hat = m.cross(ns, t_hat)
+    # respect the uv handedness, so maps baked either way shade correctly
+    b_hat = b_hat * torch.where(m.dot(b_hat, dpdv, keepdims=True) < 0.0, -1.0, 1.0)
+    n_nm = m.normalize(t_hat * ntex[:, 0:1] + b_hat * ntex[:, 1:2]
+                       + ns * torch.clamp_min(ntex[:, 2:3], 1e-3))
+
+    # bump map: central differences of the height one texel out
+    hw = scene.tex_size[tsafe].to(torch.float32)      # (N,2) = (h, w)
+    du = 1.0 / torch.clamp_min(hw[:, 1], 1.0)
+    dv = 1.0 / torch.clamp_min(hw[:, 0], 1.0)
+
+    def hgt(uv_):
+        return torch.mean(tex.sample_bilinear(scene, tsafe, uv_), dim=-1)
+
+    eu = torch.stack([du, torch.zeros_like(du)], dim=-1)
+    ev = torch.stack([torch.zeros_like(dv), dv], dim=-1)
+    dhdu = (hgt(uv + eu) - hgt(uv - eu)) / (2.0 * du)
+    dhdv = (hgt(uv + ev) - hgt(uv - ev)) / (2.0 * dv)
+    n_bm = m.normalize(m.cross(dpdu + dhdu[:, None] * ns, dpdv + dhdv[:, None] * ns))
+    n_bm = n_bm * torch.where(m.dot(n_bm, ns, keepdims=True) < 0.0, -1.0, 1.0)
+
+    new = torch.where((kind == 1)[:, None], n_nm,
+                      torch.where((kind == 2)[:, None], n_bm, ns))
+    new = torch.where(((kind > 0) & (tid >= 0))[:, None], new, ns)
+    # keep the geometric-side agreement of the unperturbed path
+    return torch.where(m.dot(new, ng, keepdims=True) < 0.0, -new, new)
+
+
+def surface_interaction(scene, o, d, its: Intersection, dd_dx=None, dd_dy=None):
     """Expand a hit record into shading data (position, frames, uv,
     material, emitter). Invalid lanes hold harmless defaults.
 
     Barycentrics are recomputed from the winning triangle's vertices, since
     the brute-force search returns only (t, prim); so are the derivatives
-    of p, ng, ns and uv with respect to `scene.vertices`. Perturbed normals, mip
-    footprints, ray differentials, vertex colours and wireframes are not
-    ported.
+    of p, ng, ns and uv with respect to `scene.vertices`. Normal and bump
+    maps perturb ns where the scene has them. With mips, "footprint" is the
+    texel footprint (t x the triangle's uv density); dd_dx/dd_dy, the ray
+    direction differentials of a 1-pixel raster step
+    (sensor.ray_differentials), add the uv partials "duvdx"/"duvdy" that
+    drive EWA. Vertex colours and wireframes are not ported.
     """
     vi = scene.indices[its.prim]
     v0 = scene.vertices[vi[:, 0]]
@@ -205,12 +267,47 @@ def surface_interaction(scene, o, d, its: Intersection):
     # flip the shading normal to the geometric side
     ns = torch.where(m.dot(ns, ng, keepdims=True) < 0.0, -ns, ns)
     uv = t0 * w0 + t1 * b1[:, None] + t2 * b2[:, None]
-    return {
+    mat = scene.tri_material[its.prim]
+    if scene.has_perturb:
+        ns = _perturb_normal(scene, mat, uv, t0, t1, t2, e1, e2, ns, ng)
+    out = {
         "p": p,
         "ng": ng,
         "ns": ns,
         "uv": uv,
-        "mat": scene.tri_material[its.prim],
+        "mat": mat,
         "emitter": scene.tri_emitter[its.prim],
         "wi_world": -d,
     }
+    if scene.tex_mips is not None and scene.tri_uv_density is not None:
+        # texel footprint for the trilinear level: the pixel's width at
+        # distance t (the camera factor is in tri_uv_density)
+        out["footprint"] = its.t * scene.tri_uv_density[its.prim]
+    if dd_dx is not None and scene.tex_mips is not None:
+        # the pixel's footprint on the hit plane: p(s) = o + t(s) d(s) on
+        # the plane gives dp = t (dd - d (dd.ng)/(d.ng))
+        dng = m.dot(d, ng)
+        safe = torch.abs(dng) > 1e-7
+        inv_dng = torch.where(safe, 1.0 / torch.where(safe, dng, 1.0), 0.0)
+        # barycentric derivatives through the edges' Gram system, mapped
+        # through the uv edges
+        a11 = m.dot(e1, e1)
+        a12 = m.dot(e1, e2)
+        a22 = m.dot(e2, e2)
+        det_g = torch.clamp_min(a11 * a22 - a12 * a12, 1e-20)
+        # a miss carries t = INF, where the JAX package's partials overflow
+        # to NaN; zero partials (the trilinear lookup) keep the masked lane
+        # finite, so its NaN neither indexes a texel nor reaches a gradient
+        t_hit = torch.where(its.valid, its.t, 0.0)
+
+        def duv_of(dd):
+            dp = t_hit[:, None] * (dd - d * (m.dot(dd, ng) * inv_dng)[:, None])
+            r1 = m.dot(dp, e1)
+            r2 = m.dot(dp, e2)
+            db1 = (a22 * r1 - a12 * r2) / det_g
+            db2 = (a11 * r2 - a12 * r1) / det_g
+            return db1[:, None] * (t1 - t0) + db2[:, None] * (t2 - t0)
+
+        out["duvdx"] = duv_of(dd_dx)
+        out["duvdy"] = duv_of(dd_dy)
+    return out

@@ -1,6 +1,6 @@
 """Built-in test scenes (port of scene/builtin.py): the Cornell box, the
-sphere-shadow mesh fixture and the big-mesh displaced sphere of the JAX
-package's bench. The geometry is built in numpy exactly as the JAX package
+mirror-caustic box, the Veach MIS sweep, the sphere-shadow mesh fixture and
+the big-mesh displaced sphere of the JAX package's bench. The geometry is built in numpy exactly as the JAX package
 builds it, then copied to `device` (the card unless the caller names
 another)."""
 from __future__ import annotations
@@ -72,6 +72,87 @@ def cornell_box(width=256, height=256, light_scale=1.0, area_light=True,
         height=height,
         device=device,
     )
+    return scene, cam
+
+
+def _quad_adder(verts, tris, tri_mat, tri_rad):
+    """add_quad(p0, p1, p2, p3, mat_id, radiance=None): two triangles,
+    counter-clockwise = front face, appended to the lists."""
+    def add_quad(p0, p1, p2, p3, mat_id, radiance=None):
+        base = len(verts)
+        verts.extend([p0, p1, p2, p3])
+        for t in ([base, base + 1, base + 2], [base, base + 2, base + 3]):
+            if radiance is not None:
+                tri_rad[len(tris)] = radiance
+            tris.append(t)
+            tri_mat.append(mat_id)
+    return add_quad
+
+
+def caustic_box(width=16, height=16, rough=False, device="cuda"):
+    """The mirror-caustic fixture: the Cornell box with its right wall a
+    conductor mirror (a GGX rough one with rough=True) and a small bright
+    light on the left wall aimed at it. Returns (scene, camera)."""
+    verts, tris, mats, tri_mat, tri_rad = [], [], [], [], {}
+    add_quad = _quad_adder(verts, tris, tri_mat, tri_rad)
+    white = {"type": ir.BSDF_DIFFUSE, "reflectance": [0.725, 0.71, 0.68]}
+    if rough:
+        mirror = {"type": ir.BSDF_ROUGH_CONDUCTOR, "eta": [0.2, 0.92, 1.1],
+                  "k": [3.9, 2.45, 2.14], "specular": [1.0, 1.0, 1.0], "alpha": 0.08}
+    else:
+        mirror = {"type": ir.BSDF_CONDUCTOR, "eta": [0.2, 0.92, 1.1],
+                  "k": [3.9, 2.45, 2.14], "specular": [1.0, 1.0, 1.0]}
+    dark = {"type": ir.BSDF_DIFFUSE, "reflectance": [0.0, 0.0, 0.0]}
+    mats.extend([white, mirror, dark])
+    W, M, LM = 0, 1, 2
+    add_quad([0, 0, 0], [0, 0, 1], [1, 0, 1], [1, 0, 0], W)      # floor
+    add_quad([0, 1, 0], [1, 1, 0], [1, 1, 1], [0, 1, 1], W)      # ceiling
+    add_quad([0, 0, 1], [0, 1, 1], [1, 1, 1], [1, 0, 1], W)      # back
+    add_quad([0, 0, 0], [0, 1, 0], [0, 1, 1], [0, 0, 1], W)      # left
+    add_quad([1, 0, 0], [1, 0, 1], [1, 1, 1], [1, 1, 0], M)      # right: the mirror
+    # small bright light high on the left wall, facing the mirror (+x)
+    add_quad([0.001, 0.6, 0.45], [0.001, 0.7, 0.45],
+             [0.001, 0.7, 0.55], [0.001, 0.6, 0.55], LM, radiance=[80.0, 70.0, 50.0])
+    scene = ir.build_scene(np.asarray(verts, np.float32), np.asarray(tris, np.int32),
+                           np.asarray(tri_mat, np.int32), mats, tri_radiance=tri_rad,
+                           device=device)
+    cam = sensorlib.make_camera(origin=[0.5, 0.5, -1.4], target=[0.5, 0.5, 0.0],
+                                fov_x=39.3077, width=width, height=height, device=device)
+    return scene, cam
+
+
+def veach_mis(width=256, height=192, device="cuda"):
+    """The Veach MIS sweep: four GGX rough-conductor plates of roughness
+    0.005-0.1 under four area lights of equal power and sizes 0.033-0.9.
+    Returns (scene, camera)."""
+    verts, tris, mats, tri_mat, tri_rad = [], [], [], [], {}
+    add_quad = _quad_adder(verts, tris, tri_mat, tri_rad)
+    mats.append({"type": ir.BSDF_DIFFUSE, "reflectance": [0.4, 0.4, 0.4]})
+    add_quad([-6, -2, -6], [-6, -2, 14], [6, -2, 14], [6, -2, -6], 0)   # floor
+    add_quad([-6, -2, 6], [-6, 8, 6], [6, 8, 6], [6, -2, 6], 0)         # back wall
+    for a, pz, py in zip([0.005, 0.02, 0.05, 0.1], [2.0, 2.6, 3.2, 3.8],
+                         [0.0, 0.55, 1.1, 1.65]):
+        mid = len(mats)
+        mats.append({"type": ir.BSDF_ROUGH_CONDUCTOR, "specular": [1.0, 1.0, 1.0],
+                     "eta": [0.2, 0.92, 1.1], "k": [3.9, 2.45, 2.14], "alpha": [a, a],
+                     "extra": [0.0, 0.0, 0.0, ir.MICROFACET_GGX]})
+        # plates tilted toward the camera and the lights
+        w, depth = 2.4, 0.35
+        add_quad([-w, py, pz], [-w, py + 0.25, pz + depth], [w, py + 0.25, pz + depth],
+                 [w, py, pz], mid)
+    # equal power, so radiance ~ 1 / area
+    lm = len(mats)
+    mats.append({"type": ir.BSDF_DIFFUSE, "reflectance": [0.0, 0.0, 0.0]})
+    for x, sz in zip([-1.8, -0.6, 0.6, 1.8], [0.033, 0.1, 0.3, 0.9]):
+        rad = 30.0 / (sz * sz * np.pi * 4)
+        add_quad([x - sz / 2, 4.0, 4.0], [x + sz / 2, 4.0, 4.0],
+                 [x + sz / 2, 4.0 - sz, 4.0 - 0.01], [x - sz / 2, 4.0 - sz, 4.0 - 0.01],
+                 lm, radiance=[rad, rad, rad])
+    scene = ir.build_scene(np.asarray(verts, np.float32), np.asarray(tris, np.int32),
+                           np.asarray(tri_mat, np.int32), mats, tri_radiance=tri_rad,
+                           device=device)
+    cam = sensorlib.make_camera(origin=[0.0, 2.0, -6.5], target=[0.0, 1.0, 2.0], fov_x=50.0,
+                                width=width, height=height, device=device)
     return scene, cam
 
 

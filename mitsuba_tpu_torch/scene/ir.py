@@ -2,19 +2,23 @@
 of scene/ir.py).
 
 The scene is a dataclass of tensors. The static fields (`num_triangles`,
-`bsdf_families`, `has_env`, `has_area`, `has_null`, `group_probs`) stay
-plain Python, as they are static pytree fields in the JAX package. `bvh`
-holds the stackless BVH of big meshes (scene/bvh.py; None until
-`bvh.attach`). Textures, mip levels, vertex colours and wireframe materials
-are not ported yet.
+`bsdf_families`, `has_env`, `has_area`, `has_null`, `has_perturb`,
+`group_probs`) stay plain Python, as they are static pytree fields in the
+JAX package. `bvh` holds the stackless BVH of big meshes (scene/bvh.py;
+None until `bvh.attach`), `envmap` a lat-long environment
+(scene/envmap.py; None for a constant one). Bitmap textures live in one
+padded stack with their mip strip (built where `lod_scale` is given);
+vertex colours and wireframe materials are not ported.
 
 Gradients: the float leaves that may carry `requires_grad` (set through
 `replace()`, as the JAX tests differentiate them) are `vertices` (hit
 points, normals, emitter samples and the boundary terms' edge points),
-`materials.reflectance` and `emitters.radiance`. Every other leaf, and the
-derived tables (`edge_table`, `face_adj`, the emitter CDF and pdfs, a
-`bvh`), is a constant built at scene assembly: moving `vertices` leaves
-them at their build-time values, as in the JAX package.
+`materials.reflectance`, `materials.alpha` (roughness), `textures` (texel
+lookups), `envmap.image` and `emitters.radiance`. Every other leaf, and
+the derived tables (`edge_table`, `face_adj`, the emitter and envmap CDFs
+and pdfs, the mip strip, `tri_uv_density`, a `bvh`), is a constant built
+at scene assembly: moving `vertices` or `textures` leaves them at their
+build-time values, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -47,6 +51,10 @@ BSDF_IRAWAN = 18
 
 BSDF_NAMES = {v: k[5:].lower() for k, v in list(globals().items())
               if k.startswith("BSDF_")}
+
+# microfacet distribution codes (extra[3] of microfacet families)
+MICROFACET_BECKMANN = 0
+MICROFACET_GGX = 1
 
 TEX_NONE = -1
 
@@ -152,8 +160,18 @@ class Scene(_Replace):
     materials: Materials
     emitters: AreaEmitters
     env_radiance: torch.Tensor  # (3,) constant environment
-    # texture stack; (1,1,1,3) zeros = no textures (the only case ported)
+    # texture stack (K, TH, TW, 3), padded; (1,1,1,3) zeros = no textures
     textures: torch.Tensor
+    tex_size: torch.Tensor      # (K,2) int32 actual (h, w) of each texture
+    tex_transform: torch.Tensor  # (K,4) uv scale_u, scale_v, offset_u, offset_v
+    tex_nearest: torch.Tensor   # (K,) int32 1 = nearest (procedural grids)
+    # mip strip: levels 1..L box-downsampled side by side in one
+    # (K, TH//2, TW, 3) canvas, level l at x offset TW (1 - 2^(1-l)) with
+    # size (TH>>l, TW>>l); None = no mips
+    tex_mips: Optional[torch.Tensor] = None
+    # (T,) per-triangle texel density sqrt(uv area / world area) x lod_scale
+    tri_uv_density: Optional[torch.Tensor] = None
+    envmap: object = None       # scene/envmap.EnvMap; None = constant env
 
     # static metadata
     group_probs: tuple = ()
@@ -162,6 +180,8 @@ class Scene(_Replace):
     has_env: bool = False
     has_area: bool = True
     has_null: bool = False
+    # a material carries a normal or bump map (surface_interaction perturbs)
+    has_perturb: bool = False
     bvh: object = None  # scene/bvh.BVH, set by bvh.attach
 
     @property
@@ -225,14 +245,15 @@ def build_scene(
     lod_scale: Optional[float] = None,
     device="cuda",
 ) -> Scene:
-    """Host-side scene assembly in numpy, then one copy to `device`."""
-    unported = {"textures": textures or None, "vertex_colors": vertex_colors,
-                "wire_params": wire_params, "lod_scale": lod_scale}
-    for name, val in unported.items():
+    """Host-side scene assembly in numpy, then one copy to `device`.
+
+    textures: dicts with "data" (H, W[, 3]) and optional "transform" (uv
+    scale and offset) and "nearest"; lod_scale (the world width of a pixel
+    at unit distance) builds the mip strip and the per-triangle uv density
+    that drive trilinear and EWA lookups."""
+    for name, val in {"vertex_colors": vertex_colors, "wire_params": wire_params}.items():
         if val is not None:
             raise NotImplementedError(f"build_scene: {name} is not ported")
-    if any(int(r.get("perturb_kind", 0)) != 0 for r in materials):
-        raise NotImplementedError("build_scene: normal/bump maps are not ported")
 
     def t(a):
         return torch.as_tensor(a, device=device)
@@ -314,6 +335,10 @@ def build_scene(
         != BSDF_NULL
 
     face_adj, edge_table = edge_tables(indices)
+    tex = texture_tables(textures, lod_scale)
+    uv_density = None
+    if lod_scale is not None:
+        uv_density = uv_densities(vertices, indices, np.asarray(uvs, np.float32), lod_scale)
 
     return Scene(
         vertices=t(vertices),
@@ -328,20 +353,85 @@ def build_scene(
         materials=Materials.stack(materials, device),
         emitters=emitters,
         env_radiance=t(env),
-        textures=t(np.zeros((1, 1, 1, 3), np.float32)),
+        **{k: None if v is None else t(v) for k, v in tex.items()},
+        tri_uv_density=None if uv_density is None else t(uv_density),
         num_triangles=int(T),
         bsdf_families=families,
         has_env=bool(has_env),
         has_area=bool(em_tris),
         has_null=bool((~tri_opaque).any()),
+        has_perturb=any(int(r.get("perturb_kind", 0)) != 0 for r in materials),
     )
+
+
+def _rgb(data):
+    d = np.asarray(data, np.float32)
+    if d.ndim == 2:
+        d = np.repeat(d[..., None], 3, axis=-1)
+    return d[..., :3]
+
+
+def texture_tables(textures: Optional[list], lod_scale: Optional[float]) -> dict:
+    """The texture stack and its tables as numpy, built as the JAX package
+    builds them (ir.py:438-486): `textures`, `tex_size`, `tex_transform`,
+    `tex_nearest`, and `tex_mips`, the mip strip, where lod_scale is given
+    and the stack is at least 4x4."""
+    if not textures:
+        return dict(textures=np.zeros((1, 1, 1, 3), np.float32),
+                    tex_size=np.ones((1, 2), np.int32),
+                    tex_transform=np.asarray([[1.0, 1.0, 0.0, 0.0]], np.float32),
+                    tex_nearest=np.zeros((1,), np.int32), tex_mips=None)
+    th = max(int(np.shape(t["data"])[0]) for t in textures)
+    tw = max(int(np.shape(t["data"])[1]) for t in textures)
+    k = len(textures)
+    stack = np.zeros((k, th, tw, 3), np.float32)
+    sizes = np.zeros((k, 2), np.int32)
+    xforms = np.zeros((k, 4), np.float32)
+    nearest = np.zeros((k,), np.int32)
+    for i, t in enumerate(textures):
+        d = _rgb(t["data"])
+        stack[i, :d.shape[0], :d.shape[1]] = d
+        sizes[i] = d.shape[:2]
+        xforms[i] = np.asarray(t.get("transform", (1.0, 1.0, 0.0, 0.0)), np.float32)
+        nearest[i] = 1 if t.get("nearest", False) else 0
+    strip = None
+    if lod_scale is not None and min(th, tw) >= 4:
+        # per-texture box-downsampled chains, level l >= 1 at x = tw (1 - 2^(1-l))
+        strip = np.zeros((k, th // 2, tw, 3), np.float32)
+        for i, t in enumerate(textures):
+            lvl = _rgb(t["data"])
+            x_off = 0
+            while min(lvl.shape[0], lvl.shape[1]) >= 2:
+                hh, ww = lvl.shape[0] // 2, lvl.shape[1] // 2
+                lvl = lvl[:hh * 2, :ww * 2].reshape(hh, 2, ww, 2, 3).mean((1, 3))
+                if x_off + ww > tw or hh > th // 2:
+                    break
+                strip[i, :hh, x_off:x_off + ww] = lvl
+                x_off += ww
+    return dict(textures=stack, tex_size=sizes, tex_transform=xforms,
+                tex_nearest=nearest, tex_mips=strip)
+
+
+def uv_densities(vertices, indices, uvs, lod_scale) -> np.ndarray:
+    """(T,) texel density sqrt(uv area / world area) x lod_scale: the mip
+    footprint's per-triangle factor (JAX ir.py:488-500)."""
+    p0 = vertices[indices[:, 0]]
+    area_w = 0.5 * np.linalg.norm(np.cross(vertices[indices[:, 1]] - p0,
+                                           vertices[indices[:, 2]] - p0), axis=1)
+    t0 = uvs[indices[:, 0]]
+    e1u = uvs[indices[:, 1]] - t0
+    e2u = uvs[indices[:, 2]] - t0
+    area_u = 0.5 * np.abs(e1u[:, 0] * e2u[:, 1] - e1u[:, 1] * e2u[:, 0])
+    return (np.sqrt(area_u / np.maximum(area_w, 1e-20))
+            * np.float32(lod_scale)).astype(np.float32)
 
 
 # JAX scene fields the port has no counterpart for yet; a scene that sets
 # one of them cannot be carried across. (`clusters` is the JAX TPU kernel's
 # private table: from_jax drops it and carries `bvh` instead.)
-_UNPORTED = ("tex_mips", "tri_uv_density", "envmap", "medium", "cloth",
-             "delta_emitters", "occupancy", "vertex_colors", "wire_params")
+_UNPORTED = ("medium", "cloth", "delta_emitters", "occupancy", "vertex_colors",
+             "wire_params")
+_OPTIONAL = ("tex_mips", "tri_uv_density")
 
 
 def _leaf(x, device):
@@ -359,13 +449,12 @@ def from_jax(jscene, device="cuda") -> Scene:
     `np.array` (so `jscene` may hold jax or numpy arrays) and the static
     fields are copied. A JAX `bvh` comes across leaf by leaf, with the
     port's kernel tables added; its `clusters` (the TPU kernel's private
-    table) are dropped, and need a `bvh` beside them. Raises for the parts
-    of the JAX IR the port does not have yet."""
+    table) are dropped, and need a `bvh` beside them. The texture stack,
+    its mip strip and an `envmap` come across as they are. Raises for the
+    parts of the JAX IR the port does not have yet."""
     for name in _UNPORTED:
         if getattr(jscene, name, None) is not None:
             raise NotImplementedError(f"from_jax: scene.{name} is not ported")
-    if getattr(jscene, "has_perturb", False):
-        raise NotImplementedError("from_jax: normal/bump maps are not ported")
     jbvh = getattr(jscene, "bvh", None)
     if getattr(jscene, "clusters", None) is not None and jbvh is None:
         raise NotImplementedError("from_jax: scene.clusters without a bvh: the "
@@ -383,6 +472,12 @@ def from_jax(jscene, device="cuda") -> Scene:
             fields[f.name] = Materials(**_tensor_fields(Materials, jscene.materials, device))
         elif f.name == "emitters":
             fields[f.name] = AreaEmitters(**_tensor_fields(AreaEmitters, jscene.emitters, device))
+        elif f.name == "envmap":
+            fields[f.name] = None if jscene.envmap is None else _envmap_from_jax(
+                jscene.envmap, device)
+        elif f.name in _OPTIONAL:
+            x = getattr(jscene, f.name)
+            fields[f.name] = None if x is None else _leaf(x, device)
         elif f.type in ("tuple", "int", "bool"):
             fields[f.name] = getattr(jscene, f.name)
         else:
@@ -398,3 +493,13 @@ def from_jax(jscene, device="cuda") -> Scene:
         aabb_min=_leaf(jbvh.aabb_min, device), aabb_max=_leaf(jbvh.aabb_max, device),
         miss_link=_leaf(jbvh.miss_link, device), tri_order=_leaf(jbvh.tri_order, device),
         n_internal=int(jbvh.n_internal), n_leaves=int(jbvh.n_leaves)))
+
+
+def _envmap_from_jax(jem, device):
+    from .envmap import EnvMap
+
+    spectral = getattr(jem, "spectral", None)
+    return EnvMap(image=_leaf(jem.image, device), row_cdf=_leaf(jem.row_cdf, device),
+                  cond_cdf=_leaf(jem.cond_cdf, device), pdf_map=_leaf(jem.pdf_map, device),
+                  scale=_leaf(jem.scale, device),
+                  spectral=None if spectral is None else _leaf(spectral, device))

@@ -569,3 +569,91 @@ def test_li_reparam_matches_jax():
     for name, a, b in zip(("vertices", "reflectance", "radiance"), g, jg):
         assert np.isfinite(a).all(), name
         assert _close(a, b, 1e-3), (name, np.abs(a - b).max(), np.abs(b).max())
+
+
+# --------------------------------------------------------------------------
+# materials: roughness and texel gradients
+# --------------------------------------------------------------------------
+
+def _leaf_grad_pair(jscene, jcam, leaf, spp, cfg, seed):
+    """(port loss, port gradient, JAX loss, JAX gradient) of the batch's
+    mean radiance through path.li with respect to one scene leaf: "alpha"
+    (materials.alpha) or "textures"; the same rays and streams."""
+    scene, cam = _port(jscene, jcam)
+    pb, jbatch = _batch(cam, spp, seed)
+
+    def swap(s, x):
+        if leaf == "alpha":
+            return s.replace(materials=s.materials.replace(alpha=x))
+        return s.replace(textures=x)
+
+    x = (scene.materials.alpha if leaf == "alpha" else scene.textures).clone().requires_grad_(True)
+    L = path.li(swap(scene, x), cam, *pb[:2], pb[2], common.RenderConfig(**cfg))
+    loss = L.mean()
+    loss.backward()
+
+    def jloss(xj):
+        o, d, st = jbatch
+        return jnp.mean(jpath.li(swap(jscene, xj), jcam, o, d, st, jcom.RenderConfig(**cfg)))
+
+    x0 = jscene.materials.alpha if leaf == "alpha" else jscene.textures
+    jval, jg = jax.jit(jax.value_and_grad(jloss))(x0)
+    return loss.item(), x.grad.numpy(), float(jval), np.asarray(jg)
+
+
+def test_roughness_grad_matches_jax():
+    """tests/test_grad_coverage.py:60's scene (a 0.25-rough conductor floor
+    under a quad light, 16x16, depth 2, seed 7) at 4 spp: d(mean)/d(alpha)
+    against jax.grad on the same rays. Bars: loss 1e-6 relative, gradient
+    1e-4 of its largest entry."""
+    verts = np.asarray([[-2, 0, -2], [-2, 0, 2], [2, 0, 2], [2, 0, -2], [-0.4, 1.5, -0.4],
+                        [0.4, 1.5, -0.4], [0.4, 1.5, 0.4], [-0.4, 1.5, 0.4]], np.float32)
+    tris = np.asarray([[0, 1, 2], [0, 2, 3], [4, 5, 6], [4, 6, 7]], np.int32)
+    jscene = jir.build_scene(verts, tris, np.zeros(4, np.int32),
+                             [{"type": jir.BSDF_ROUGH_CONDUCTOR, "alpha": [0.25, 0.25],
+                               "eta": [0.2, 0.92, 1.1], "k": [3.9, 2.45, 2.14]}],
+                             tri_radiance={2: [8.0] * 3, 3: [8.0] * 3})
+    jcam = jsens.make_camera(origin=[0, 1.0, 2.5], target=[0, 0, 0], fov_x=50.0,
+                             width=16, height=16)
+    loss, g, jloss, jg = _leaf_grad_pair(jscene, jcam, "alpha", 4,
+                                         dict(spp=4, max_depth=2, seed=7), 7)
+    assert abs(loss - jloss) <= 1e-6 * abs(jloss)
+    assert np.isfinite(g).all() and np.abs(jg).max() > 1e-3
+    assert _close(g, jg, 1e-4), (np.abs(g - jg).max(), np.abs(jg).max())
+
+
+TEXEL_NAN = 6
+
+
+@pytest.mark.parametrize("mips", [False, True], ids=["bilinear", "mips_ewa"])
+def test_texel_grad_matches_jax(mips):
+    """tests/test_baseline_configs.py:42's textured quad under a constant
+    8x16 envmap (12x12, depth 2, seed 0) at 4 spp: d(mean)/d(texels)
+    against jax.grad on the same rays; with mips, the primary hit's EWA
+    and the trilinear footprint after it, whose base level (below lod 1)
+    carries the texel gradient (the mip strip is a constant, in both
+    packages). Bars: loss 1e-6
+    relative, gradient 1e-4 of its largest entry. With mips, JAX's texel
+    gradient is NaN at the texels that its missed rays' overflowing uv
+    partials index (C26; measured TEXEL_NAN of 64); the port's is finite
+    everywhere and is compared on the others."""
+    from mitsuba_tpu.scene import envmap as jenv
+
+    cs = _chip_smoke()
+    verts, tris, uvs = cs.TEXTURED_QUAD
+    tex = np.full((8, 8, 3), 0.5, np.float32)
+    jcam = jsens.make_camera(**cs.TEXTURED_QUAD_CAMERA, width=12, height=12)
+    jscene = jenv.attach_envmap(jir.build_scene(
+        verts, tris, np.zeros(2, np.int32), [{"type": jir.BSDF_DIFFUSE, "tex_reflectance": 0}],
+        uvs=uvs, textures=[{"data": tex}],
+        lod_scale=cs.lod_scale(sensor.camera_from_jax(jcam, device="cpu")) if mips else None),
+        np.ones((8, 16, 3), np.float32))
+    loss, g, jloss, jg = _leaf_grad_pair(jscene, jcam, "textures", 4,
+                                         dict(spp=4, max_depth=2, seed=0), 0)
+    assert abs(loss - jloss) <= 1e-6 * abs(jloss)
+    assert np.isfinite(g).all()
+    jfin = np.isfinite(jg).all(-1)
+    assert (~jfin).sum() == (TEXEL_NAN if mips else 0), np.argwhere(~jfin)
+    g, jg = g[jfin], jg[jfin]
+    assert np.abs(jg).max() > 1e-5
+    assert _close(g, jg, 1e-4), (np.abs(g - jg).max(), np.abs(jg).max())

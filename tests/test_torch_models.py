@@ -150,10 +150,13 @@ def test_bsdf_gather_eval_sample(cornell):
 
 
 def test_unported_family_raises(cornell):
-    scene = cornell[2].replace(bsdf_families=(tir.BSDF_DIFFUSE, tir.BSDF_PLASTIC))
+    """The families that still raise name themselves and what they wait
+    for (the Hanrahan-Krueger slab, Irawan's cloth)."""
     mat = torch.zeros(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="plastic"):
-        tB.gather_shade_point(scene, mat, torch.zeros(4, 2))
+    for fam, what in ((tir.BSDF_HK, "hk.*phase"), (tir.BSDF_IRAWAN, "irawan.*cloth")):
+        scene = cornell[2].replace(bsdf_families=(tir.BSDF_DIFFUSE, fam))
+        with pytest.raises(NotImplementedError, match=what):
+            tB.gather_shade_point(scene, mat, torch.zeros(4, 2))
 
 
 def test_entry_points_default_to_the_card():
