@@ -26,9 +26,19 @@ mipped texture (trilinear and EWA lookups) under a 512x1,024 environment
 map, and the map's total radiance by importance sampling; the roughness
 and texel gradients against finite differences. In each of these, too,
 one launch per kernel entry and batch size is rerun through the twin.
+Then participating media and delta lights, through volpath.li: the
+volpath_homogeneous golden; the golden's fog in the Cornell box at
+256x256, 64 spp, depth 6 (darker than the vacuum render); an absorbing blob
+on a 128^3 density grid at 256x256, 16 spp (each blob position darkens its
+own half; the share of device time in the density lookups); a spot light's
+beam in the fog, a point light through the wavefront (and the wavefront
+against path.li); the 10,372-triangle sphere_shadow in the fog on the BVH
+kernel; the sigma_t and albedo gradients against finite differences. Each
+counts its kernel's launches from zero and reruns one launch per entry and
+batch size through the twin.
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The line [total] gives the whole script's seconds and those of
-the materials phases.
+the materials and the media phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -638,34 +648,90 @@ def phase_headline(dev, width, spp):
     return launches
 
 
-def phase_profile(name, scene, cam, cfg, **render_kw):
-    """Device busy share of one render (torch.profiler, CUDA kernel time /
-    wall time of the same render without the profiler)."""
+def device_times(prof, labels=()):
+    """(kernel -> device ns, {label: device ns}) from the profiler's raw
+    events, read once (key_averages builds a Python object per event,
+    ~70 us each, half a minute on a grid render's ~10^6 events). A
+    record_function range also appears on the device as a span from its
+    first kernel to its last, idle gaps included: it is not a kernel. A
+    label's device time is that of the kernels starting inside its spans,
+    which on one stream are the range's own."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from mitsuba_tpu_torch.integrators import wavefront
+    cuda = torch.autograd.DeviceType.CUDA
+    per_kernel, kernels, spans = {}, [], {label: [] for label in labels}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
+            continue
+        name, start, dur = e.name(), e.start_ns(), e.duration_ns()
+        if name in spans:
+            spans[name].append((start, start + dur))
+            continue
+        per_kernel[name] = per_kernel.get(name, 0) + dur
+        kernels.append((start, dur))
+    starts = np.asarray([k[0] for k in kernels], np.int64)
+    durs = np.asarray([k[1] for k in kernels], np.int64)
+    in_label = {}
+    for label, sp in spans.items():
+        sp = np.asarray(sorted(sp), np.int64).reshape(-1, 2)
+        at = np.searchsorted(sp[:, 0], starts, side="right") - 1
+        inside = (at >= 0) & (starts < sp[np.maximum(at, 0), 1]) if len(sp) else at < -1
+        in_label[label] = int(durs[inside].sum())
+    return per_kernel, in_label
+
+
+def phase_profile(name, scene, cam, cfg, li=None, scopes=None, **render_kw):
+    """Device busy share of one render (torch.profiler, CUDA kernel time /
+    wall time of the same render without the profiler): the wavefront's,
+    or common.render's with the integrator `li`. gather_share: the device
+    time of torch's indexing and gather kernels over all kernels'. scopes
+    {name: (module, function name)}: during the profiled render each
+    function runs inside a profiler range of that name, and the device
+    time of its kernels is printed as a share of all (device_times).
+    Returns {name: share}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mitsuba_tpu_torch.integrators import common, wavefront
+
+    def render():
+        if li is None:
+            return wavefront.render(scene, cam, cfg, **render_kw)
+        return common.render(scene, cam, li, cfg)
+
+    def in_range(label, fn):
+        def call(*args, **kw):
+            with record_function(label):
+                return fn(*args, **kw)
+        return call
 
     dev = scene.device
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    wavefront.render(scene, cam, cfg, **render_kw)
+    render()
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
     # the profiler slows the host side; its device time is divided by the
     # wall time of the same render without it
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wavefront.render(scene, cam, cfg, **render_kw)
-        torch.cuda.synchronize(dev)
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
-    device_s = sum(e.device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:5]
+    with contextlib.ExitStack() as stack:
+        for label, (mod, fn) in (scopes or {}).items():
+            stack.enter_context(mock.patch.object(mod, fn, in_range(label, getattr(mod, fn))))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            render()
+            torch.cuda.synchronize(dev)
+    per_kernel, in_label = device_times(prof, scopes or {})
+    device_ns = sum(per_kernel.values())
+    gather_ns = sum(t for k, t in per_kernel.items()
+                    if "index" in k.lower() or "gather" in k.lower())
+    shares = {label: round(t / device_ns, 4) for label, t in in_label.items()}
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
     say("profile", render=name, resolution=f"{cam.width}x{cam.height}", spp=cfg.spp,
-        wall_s=round(wall_s, 4), device_busy_s=round(device_s, 4),
-        busy_share=round(device_s / wall_s, 4),
-        device_kernels=sum(e.count for e in kernels),
-        top_ms=[(e.key[:48], round(e.device_time_total / 1e3, 2)) for e in top])
+        wall_s=round(wall_s, 4), device_busy_s=round(device_ns / 1e9, 4),
+        busy_share=round(device_ns / 1e9 / wall_s, 4),
+        gather_share=round(gather_ns / device_ns, 4),
+        **({"scope_share": shares} if scopes else {}),
+        top_ms=[(k[:48], round(t / 1e6, 2)) for k, t in top])
+    return shares
 
 
 def cornell_headline(dev, width, spp):
@@ -1256,7 +1322,9 @@ def phase_grad_headline(dev, spp):
     seed 1) through boundary.render_grad with the default BoundaryConfig
     (n_edge 8, the splat pass with 16,384 samples), gradients with respect
     to the vertices, reflectances and radiances. Forward and backward
-    seconds (host clock, synchronised), peak memory, B1's launches, the
+    seconds (host clock, synchronised), peak memory (peak_gb: the device's
+    peak from the step's start; step_peak_gb: that less what was allocated
+    at the step's start, the step's own), B1's launches, the
     device busy share of the step (torch.profiler's kernel time over the
     unprofiled step's wall time) and the bytes autograd saved for the
     backward (each storage once, counted in the profiled step). In the
@@ -1290,6 +1358,7 @@ def phase_grad_headline(dev, spp):
 
     bk.reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
+    base_gb = torch.cuda.memory_allocated(dev) / 1e9
     loss, grads, fwd_s, bwd_s = step()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches, plain = dict(bk.KERNEL_LAUNCHES), dict(bk.PLAIN_CALLS)
@@ -1313,7 +1382,8 @@ def phase_grad_headline(dev, spp):
     del kept
     say("grad_headline", resolution="256x256", spp=spp, max_depth=8, loss=round(loss, 8),
         forward_s=round(fwd_s, 4), backward_s=round(bwd_s, 4),
-        peak_gb=round(peak_gb, 3), saved_gb=round(sum(saved.values()) / 1e9, 3),
+        peak_gb=round(peak_gb, 3), step_peak_gb=round(peak_gb - base_gb, 3),
+        saved_gb=round(sum(saved.values()) / 1e9, 3),
         b1_launches=launches, b1_plain_calls=plain,
         twin_checked_rays=twin_checked, twin_mismatches=0, device_busy_s=round(device_s, 4), busy_share=round(device_s / (fwd_s + bwd_s), 4),
         device_kernels=sum(e.count for e in kernels),
@@ -1553,15 +1623,20 @@ def phase_envmap_textured(dev, width=256, lanes=4):
 
 
 def fd_step(loss, x, dev):
-    """(value, gradient, forward s, backward s, peak GB) of loss(x) with x
-    requiring grad; the peak counts from the step's start."""
+    """(value, gradient, forward s, backward s, peak GB, step peak GB) of
+    loss(x) with x requiring grad. The peak counter is reset at the step's
+    start: peak GB is the device's peak from there, what earlier phases
+    still hold included; step peak GB is that peak less the memory
+    allocated at the step's start, the step's own."""
     import torch
 
     x = x.detach().clone().requires_grad_(True)
     torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     val, fwd_s = timed(lambda: loss(x), dev)
     _, bwd_s = timed(val.backward, dev)
-    return float(val.detach()), x.grad, fwd_s, bwd_s, torch.cuda.max_memory_allocated(dev) / 1e9
+    peak = torch.cuda.max_memory_allocated(dev)
+    return float(val.detach()), x.grad, fwd_s, bwd_s, peak / 1e9, (peak - base) / 1e9
 
 
 def phase_grad_materials(dev):
@@ -1600,8 +1675,9 @@ def phase_grad_materials(dev):
 
     keeping, read = counted()
     with keeping:
-        _, g_r, fwd_r, bwd_r, peak_r = fd_step(rough_loss(48), torch.tensor(0.25, device=dev), dev)
-        _, g_t, fwd_t, bwd_t, peak_t = fd_step(texel_loss, quad.textures, dev)
+        _, g_r, fwd_r, bwd_r, peak_r, step_r = fd_step(rough_loss(48),
+                                                       torch.tensor(0.25, device=dev), dev)
+        _, g_t, fwd_t, bwd_t, peak_t, step_t = fd_step(texel_loss, quad.textures, dev)
     launches, plain, kept = read()
     checked = check_kept(bk, kept)
     with torch.no_grad():
@@ -1629,6 +1705,7 @@ def phase_grad_materials(dev):
         forward_s={"roughness": round(fwd_r, 4), "texel": round(fwd_t, 4)},
         backward_s={"roughness": round(bwd_r, 4), "texel": round(bwd_t, 4)},
         peak_gb={"roughness": round(peak_r, 4), "texel": round(peak_t, 4)},
+        step_peak_gb={"roughness": round(step_r, 4), "texel": round(step_t, 4)},
         texel_backward_device_ms=round(sum(ev.device_time_total for ev in kernels) / 1e3, 4),
         indexing_backward_ms=round(idx_ms, 4), b1_launches=launches, b1_plain_calls=plain,
         twin_checked_rays=checked, twin_mismatches=0, finite=finite)
@@ -1640,6 +1717,314 @@ def phase_grad_materials(dev):
         raise AssertionError(f"material gradients: roughness {g_r} against FD {fd_r}, "
                              f"texel {g_t3} against FD {fd_t}, finite {finite}")
     return launches
+
+
+# --- participating media and delta lights ----------------------------------
+
+# The volpath_homogeneous golden's medium (tools/golden_scenes.py:32-37:
+# sigma_s, sigma_a, g), also BASELINE's "homogeneous medium volpath" at the
+# validation resolution (BASELINE.md:24-26): 256x256, 64 spp, depth 6.
+FOG = ([0.2] * 3, [0.05] * 3, 0.3)
+VOLPATH_SPP = 64
+VOLPATH_DEPTH = 6
+# a user's volume: a 128^3 float32 density grid (8 MB), the Gaussian blob of
+# tests/test_volpath.py:215-220 at that resolution; 16 spp, depth 5
+GRID_RES = 128
+GRID_SPP = 16
+GRID_DEPTH = 5
+# tests/test_grad_coverage.py:26-57: AD 64 spp, FD 256 spp, eps 0.1, 12%
+MEDIUM_FD_RTOL = 0.12
+# the wavefront against path.li on a delta-lit scene, as veach_check
+DELTA_CHECK_ATOL = 1e-5
+
+
+def path_launches(path, launches, prefix="brute"):
+    """{path: launches}, the kernels' names prefixed as in KERNELS."""
+    return {path: {f"{prefix}_{k}": v for k, v in launches.items()}}
+
+
+def fog(dev):
+    from mitsuba_tpu_torch.models import medium
+
+    return medium.make_homogeneous(*FOG, device=dev)
+
+
+def blob_medium(cx, dev, res=GRID_RES):
+    """tests/test_volpath.py:215-220's absorbing blob at x = cx over the unit
+    box, on a res^3 grid."""
+    from mitsuba_tpu_torch.models import medium
+
+    zz, yy, xx = np.meshgrid(*([np.linspace(0, 1, res, dtype=np.float32)] * 3), indexing="ij")
+    dens = np.exp(-((xx - cx) ** 2 + (yy - 0.5) ** 2 + (zz - 0.5) ** 2) / 0.02) * 4.0
+    return medium.make_grid(dens.astype(np.float32), 6.0, 0.2, device=dev)
+
+
+def volpath_cell(name, scene, cam, cfg, dev, scopes=None):
+    """One render through common.render(volpath.li), counted: render_s,
+    samples/s, B1's launches (zeroed just before the render, read just
+    after; the first launch per entry and batch size rerun through the
+    twin), and the device busy share and top kernels of a profiled 4-spp
+    render (phase_profile). Returns (image, B1's launches, the profile's
+    scope shares)."""
+    import dataclasses
+
+    from mitsuba_tpu_torch.integrators import common, volpath
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+
+    keeping, read = counted()
+    with keeping:
+        img, render_s = timed(lambda: common.render(scene, cam, volpath.li, cfg), dev)
+    launches, plain, kept = read()
+    require_b1(f"{name} render", launches, plain)
+    checked = check_kept(bk, kept)
+    say(name, resolution=f"{cam.width}x{cam.height}", spp=cfg.spp, max_depth=cfg.max_depth,
+        tris=scene.num_triangles, medium_kind=scene.medium.kind, render_s=round(render_s, 4),
+        samples_per_s=round(cam.width * cam.height * cfg.spp / render_s),
+        mean_radiance=round(float(img.mean()), 6), b1_launches=launches, b1_plain_calls=plain,
+        twin_checked_rays=checked, twin_mismatches=0)
+    shares = phase_profile(name, scene, cam, dataclasses.replace(cfg, spp=4), li=volpath.li,
+                           scopes=scopes)
+    return img, launches, shares
+
+
+def require_finite(what, img, shape):
+    import torch
+
+    if not bool(torch.isfinite(img).all()) or tuple(img.shape) != shape:
+        raise AssertionError(f"{what}: shape {tuple(img.shape)}, finite "
+                             f"{bool(torch.isfinite(img).all())}")
+
+
+def phase_golden_volpath(dev):
+    """tools/golden_scenes.py's volpath_homogeneous (Cornell 24x24, 64 spp,
+    depth 6, seed 7) through the port's volpath.li, against
+    tests/golden/volpath_homogeneous.npy at the golden bar (check_golden).
+    B1 carries every search; one launch per entry and batch size is rerun
+    through its twin. Returns B1's launches as {path: launches}."""
+    from mitsuba_tpu_torch.integrators import common, volpath
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(24, 24, device=dev)
+    keeping, read = counted()
+    with keeping:
+        img = common.render(scene.replace(medium=fog(dev)), cam, volpath.li,
+                            common.RenderConfig(spp=64, max_depth=6, seed=7))
+    launches, plain, kept = read()
+    require_b1("golden_volpath", launches, plain)
+    checked = check_kept(bk, kept)
+    flips, max_diff = check_golden(img.cpu().numpy(),
+                                   np.load(ROOT / "tests" / "golden" / "volpath_homogeneous.npy"))
+    say("golden_volpath", shape=list(img.shape), pixels_off=flips, max_abs_diff=max_diff,
+        b1_launches=launches, twin_checked_rays=checked, twin_mismatches=0)
+    return path_launches("golden_volpath", launches)
+
+
+def phase_volpath(dev, width=256):
+    """BASELINE's homogeneous-medium volpath: the golden's medium in the
+    Cornell box at width x width, VOLPATH_SPP spp, depth 6, through
+    common.render(volpath.li) (volpath_cell; 8 chunks of 524,288 rays at
+    256x256). The image finite and darker than the vacuum render of the
+    same config (tests/test_volpath.py:107). Returns B1's launches as
+    {path: launches}."""
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(width, width, device=dev)
+    cfg = common.RenderConfig(spp=VOLPATH_SPP, max_depth=VOLPATH_DEPTH, seed=0)
+    img, launches, _ = volpath_cell("volpath", scene.replace(medium=fog(dev)), cam, cfg, dev)
+    vacuum, vacuum_s = timed(lambda: common.render(scene, cam, path.li, cfg), dev)
+    mean, vac_mean = float(img.mean()), float(vacuum.mean())
+    say("volpath_check", mean=round(mean, 6), vacuum_mean=round(vac_mean, 6),
+        vacuum_render_s=round(vacuum_s, 4))
+    require_finite("volpath image", img, (width, width, 3))
+    if not 0.01 < mean < vac_mean:
+        raise AssertionError(f"volpath: fog mean {mean} against vacuum {vac_mean}")
+    return path_launches("volpath_render", launches)
+
+
+def phase_volpath_grid(dev, width=256, res=GRID_RES):
+    """A heterogeneous grid medium at a user's volume size: the absorbing
+    blob on a res^3 grid (make_grid(dens, 6.0, 0.2) over the unit box) at
+    x = 0.22 and at x = 0.78, width x width, depth 5. The first, at
+    GRID_SPP spp, is counted and profiled (volpath_cell), with the share of
+    device time inside medium.density_at (the tracking walks' trilinear
+    gathers and their weights); the second, at 4 spp (one chunk), only
+    serves the check that each blob darkens its own half of the image
+    (tests/test_volpath.py:228-231). Returns B1's launches as {path:
+    launches}."""
+    import dataclasses
+
+    from mitsuba_tpu_torch.integrators import common, volpath
+    from mitsuba_tpu_torch.models import medium
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(width, width, device=dev)
+    cfg = common.RenderConfig(spp=GRID_SPP, max_depth=GRID_DEPTH, seed=5)
+    left, launches, shares = volpath_cell(
+        "volpath_grid", scene.replace(medium=blob_medium(0.22, dev, res)), cam, cfg, dev,
+        scopes={"density_at": (medium, "density_at")})
+    right, right_s = timed(lambda: common.render(
+        scene.replace(medium=blob_medium(0.78, dev, res)), cam, volpath.li,
+        dataclasses.replace(cfg, spp=4)), dev)
+    half = width // 2
+
+    def ratio(img):
+        return float(img[:, :half].mean()) / max(float(img[:, half:].mean()), 1e-6)
+
+    lh, rh = ratio(left), ratio(right)
+    diff = float((left - right).abs().max())
+    say("volpath_grid_check", grid=[res] * 3, grid_mb=round(res ** 3 * 4 / 2 ** 20, 2),
+        left_half_ratio=round(lh, 5), right_blob_half_ratio=round(rh, 5), max_abs_diff=diff,
+        right_render_s=round(right_s, 4), density_share=shares["density_at"])
+    for what, img in (("left blob", left), ("right blob", right)):
+        require_finite(what, img, (width, width, 3))
+    if not lh < rh or not diff > 0.01:
+        raise AssertionError(f"volpath_grid: half ratios {lh} (left blob), {rh} (right), "
+                             f"max diff {diff}")
+    return path_launches("volpath_grid_render", launches)
+
+
+def phase_volpath_delta(dev, width=256, small=(64, 48)):
+    """Delta lights. cornell_box_lit("spot") inside the golden's fog, width x
+    width, VOLPATH_SPP spp, depth 6, through volpath (volpath_cell): the
+    beam lights the fog, so the upper centre of the image (seen through
+    the cone) gains on its upper sides against the vacuum render.
+    cornell_box_lit("point") through the wavefront at the same size
+    (render_cell), and at `small` x 16 spp the wavefront against
+    common.render(path.li) within DELTA_CHECK_ATOL. Returns B1's launches
+    of the volumetric and the wavefront renders as {path: launches}."""
+    from mitsuba_tpu_torch.integrators import common, path, wavefront
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box_lit("spot", width, width, device=dev)
+    cfg = common.RenderConfig(spp=VOLPATH_SPP, max_depth=VOLPATH_DEPTH, seed=0)
+    beam, launches, _ = volpath_cell("volpath_spot", scene.replace(medium=fog(dev)), cam, cfg, dev)
+    vacuum = common.render(scene, cam, path.li, cfg)
+    rows = slice(width // 8, width * 7 // 16)
+
+    def centre_over_sides(img):
+        return float(img[rows, width * 3 // 8:width * 5 // 8].mean()) / max(
+            float(img[rows, width // 16:width * 3 // 16].mean()), 1e-6)
+
+    fog_ratio, vac_ratio = centre_over_sides(beam), centre_over_sides(vacuum)
+    point, cam_p = builtin.cornell_box_lit("point", width, width, device=dev)
+    img_p, launches_p = render_cell("point_wavefront", point, cam_p, cfg, 4, dev)
+    small_scene, cam_s = builtin.cornell_box_lit("point", *small, device=dev)
+    cfg_s = common.RenderConfig(spp=16, max_depth=VOLPATH_DEPTH, seed=1)
+    diff = float((wavefront.render(small_scene, cam_s, cfg_s)
+                  - common.render(small_scene, cam_s, path.li, cfg_s)).abs().max())
+    say("volpath_delta_check", beam_centre_over_sides=round(fog_ratio, 5),
+        vacuum_centre_over_sides=round(vac_ratio, 5), spot_vacuum_mean=round(float(vacuum.mean()), 6),
+        point_mean=round(float(img_p.mean()), 6), wavefront_vs_path_max_abs_diff=diff,
+        bar=DELTA_CHECK_ATOL)
+    require_finite("spot beam", beam, (width, width, 3))
+    require_finite("point light", img_p, (width, width, 3))
+    if not fog_ratio > vac_ratio or not float(img_p.mean()) > 0.01 \
+            or not diff <= DELTA_CHECK_ATOL:
+        raise AssertionError(f"volpath_delta: beam {fog_ratio} against vacuum {vac_ratio}, "
+                             f"point mean {float(img_p.mean())}, wavefront vs path {diff}")
+    return {**path_launches("volpath_spot_render", launches),
+            **path_launches("point_wavefront_render", launches_p)}
+
+
+def phase_volpath_mesh(dev, width=64):
+    """sphere_shadow (10,372 triangles, BVH attached) in the golden's fog,
+    width x width, 16 spp, depth 4, through volpath: every search on B2
+    (its launches zeroed just before, read just after; none on B1), the
+    first launch of each entry at each batch size rerun through the walk
+    (check_kept); the image finite, lit and darker than the vacuum render.
+    Returns B2's launches as {path: launches}."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common, path, volpath
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam, _ = builtin.sphere_shadow(width=width, height=width, attach_bvh=True, device=dev)
+    cfg = common.RenderConfig(spp=16, max_depth=4, seed=0)
+    for counts in (bk, bvk):
+        counts.reset_counts()
+    keeping, kept = keeping_launches(bvk)
+    with keeping:
+        img, render_s = timed(lambda: common.render(scene.replace(medium=fog(dev)), cam,
+                                                    volpath.li, cfg), dev)
+    launches, plain, brute = dict(bvk.KERNEL_LAUNCHES), dict(bvk.PLAIN_CALLS), dict(bk.KERNEL_LAUNCHES)
+    checked = check_kept(bvk, kept)
+    with torch.no_grad():
+        vac_mean = float(common.render(scene, cam, path.li, cfg).mean())
+    mean = float(img.mean())
+    say("volpath_mesh", tris=scene.num_triangles, resolution=f"{width}x{width}", spp=cfg.spp,
+        max_depth=cfg.max_depth, render_s=round(render_s, 4), mean_radiance=round(mean, 6),
+        vacuum_mean=round(vac_mean, 6), bvh_kernel_launches=launches, bvh_plain_calls=plain,
+        brute_launches=brute, twin_checked_rays=checked, twin_mismatches=0)
+    require_finite("volpath_mesh image", img, (width, width, 3))
+    if min(launches["closest"], launches["any_hit"]) == 0 or any(plain.values()) \
+            or any(brute.values()):
+        raise AssertionError(f"volpath_mesh bypassed B2: {launches}, plain {plain}, "
+                             f"brute {brute}")
+    if not 0.005 < mean < vac_mean:
+        raise AssertionError(f"volpath_mesh: fog mean {mean} against vacuum {vac_mean}")
+    return path_launches("volpath_mesh", launches, "bvh")
+
+
+def phase_grad_medium(dev):
+    """tests/test_grad_coverage.py:26-57 on the card: d mean / d sigma_t of
+    make_homogeneous(s/2, s/2) at s = 0.3 (seed 3) and d mean / d albedo of
+    make_homogeneous(0.4 a, 0.4 (1 - a)) at a = 0.5 (seed 5), Cornell
+    16x16, depth 3; AD at 64 spp against central FD at 256 spp, eps 0.1,
+    within MEDIUM_FD_RTOL. Forward and backward seconds, peak_gb and
+    step_peak_gb (fd_step), B1's launches with the twin reruns; every
+    gradient finite. Returns B1's launches as {path: launches}."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common, volpath
+    from mitsuba_tpu_torch.models import medium
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(16, 16, device=dev)
+    ones = torch.ones(3, device=dev)
+
+    def loss_at(spp, seed, make):
+        cfg = common.RenderConfig(spp=spp, max_depth=3, seed=seed)
+        return lambda x: common.render(scene.replace(medium=make(x)), cam, volpath.li,
+                                       cfg).mean()
+
+    cases = {
+        "sigma_t": (0.3, 3, lambda s: medium.make_homogeneous(ones * s * 0.5, ones * s * 0.5,
+                                                              device=dev)),
+        "albedo": (0.5, 5, lambda a: medium.make_homogeneous(a * 0.4, (1.0 - a) * 0.4,
+                                                             device=dev)),
+    }
+    keeping, read = counted()
+    steps = {}
+    with keeping:
+        for name, (x0, seed, make) in cases.items():
+            steps[name] = fd_step(loss_at(64, seed, make), torch.tensor(x0, device=dev), dev)
+    launches, plain, kept = read()
+    checked = check_kept(bk, kept)
+    out = {}
+    for name, (x0, seed, make) in cases.items():
+        with torch.no_grad():
+            fd_loss = loss_at(256, seed, make)
+            fd = (float(fd_loss(torch.tensor(x0 + 0.1, device=dev)))
+                  - float(fd_loss(torch.tensor(x0 - 0.1, device=dev)))) / 0.2
+        _, g, fwd_s, bwd_s, peak, step_peak = steps[name]
+        out[name] = dict(ad=round(float(g), 6), fd=round(fd, 6),
+                         rel_err=round(abs(float(g) - fd) / max(abs(fd), 1e-12), 5),
+                         forward_s=round(fwd_s, 4), backward_s=round(bwd_s, 4),
+                         peak_gb=round(peak, 4), step_peak_gb=round(step_peak, 4),
+                         finite=bool(torch.isfinite(g).all()))
+    say("grad_medium", **out, bar=MEDIUM_FD_RTOL, b1_launches=launches, b1_plain_calls=plain,
+        twin_checked_rays=checked, twin_mismatches=0)
+    require_b1("grad_medium", launches, plain)
+    for name, r in out.items():
+        if not r["finite"] or not abs(r["fd"]) > 1e-6 \
+                or abs(r["ad"] - r["fd"]) > MEDIUM_FD_RTOL * abs(r["fd"]) + 1e-5:
+            raise AssertionError(f"medium gradient {name}: AD {r['ad']} against FD {r['fd']}")
+    return path_launches("grad_medium", launches)
 
 
 def main(argv=None) -> int:
@@ -1702,9 +2087,17 @@ def main(argv=None) -> int:
     for path, phase in (("veach_render", phase_veach), ("envmap_render", phase_envmap_textured),
                         ("grad_materials", phase_grad_materials)):
         paths[path] = {f"brute_{k}": v for k, v in phase(dev).items()}
+    t_media = time.perf_counter()
+    media_s = {}
+    for phase in (phase_golden_volpath, phase_volpath, phase_volpath_grid,
+                  phase_volpath_delta, phase_volpath_mesh, phase_grad_medium):
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        media_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
     t_end = time.perf_counter()
     say("total", seconds=round(t_end - t_start, 3),
-        materials_seconds=round(t_end - t_materials, 3))
+        materials_seconds=round(t_media - t_materials, 3),
+        media_seconds=round(t_end - t_media, 3), media_phase_seconds=media_s)
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

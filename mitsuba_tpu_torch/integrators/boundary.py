@@ -390,8 +390,15 @@ def render_grad(scene, cam, cfg: RenderConfig,
     the per-vertex NEE boundary terms (li_grad) plus the camera-silhouette
     splat pass. Its primal equals the plain path render; the gradient of a
     loss of this image with respect to scene.vertices includes every
-    visibility boundary term."""
+    visibility boundary term. A scene with a medium raises: the boundary
+    terms are those of vacuum transport (its sigma_t and albedo gradients
+    come from common.render(volpath.li))."""
     from . import common as commonmod
+
+    if scene.medium is not None:
+        raise NotImplementedError(
+            "boundary.render_grad has no medium transport: differentiate "
+            "common.render(scene, cam, volpath.li, cfg) instead")
 
     img = commonmod.render(
         scene, cam, lambda s, c, o, d, st, cf: li_grad(s, c, o, d, st, cf, bc), cfg)

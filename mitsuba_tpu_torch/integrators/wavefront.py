@@ -46,7 +46,13 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
     elsewhere it decomposes and fusing only adds state).
     compact: the compaction ladder over halving widths >= max(1024, n/16);
     it needs fuse and at least 4096 lanes, and raises without them rather
-    than doing nothing."""
+    than doing nothing. A scene with a medium raises: the wavefront has
+    vacuum transport only (the JAX wavefront renders such a scene as
+    vacuum without a word, ROADMAP C28)."""
+    if scene.medium is not None:
+        raise NotImplementedError(
+            "wavefront.render has no medium transport: render a scene with a "
+            "medium through common.render(scene, cam, volpath.li, cfg)")
     if fuse is None:
         fuse = trace.fuses(scene)
     if cfg.sampler != 0:

@@ -4,8 +4,9 @@ models/bsdf.py).
 Every ray batch gathers its material record into a ShadePoint SoA and each
 family present in the scene is evaluated for all rays, with lane masks
 selecting the right result. Every family of the JAX package is ported but
-two: the Hanrahan-Krueger slab (BSDF_HK) and Irawan's woven cloth
-(BSDF_IRAWAN) raise NotImplementedError naming themselves. The blend
+one: Irawan's woven cloth (BSDF_IRAWAN) raises NotImplementedError naming
+itself. The Hanrahan-Krueger slab (BSDF_HK) scatters with the HG phase
+function of models/phase.py. The blend
 adapter resolves to a child in `gather_shade_point`; the coating adapter
 dispatches its nested record's families with bent directions.
 
@@ -30,13 +31,13 @@ from ..core import math as m
 from ..core import warp
 from ..scene import ir
 from . import microfacet as mf
+from . import phase as phaselib
 from . import texture as tex
 
 INV_PI = 1.0 / math.pi
 
 # families that still raise, with the ROADMAP item that brings them
-_UNPORTED = {ir.BSDF_HK: "the Hanrahan-Krueger slab needs models/phase.py (ROADMAP A10.6)",
-             ir.BSDF_IRAWAN: "Irawan's woven cloth needs models/cloth.py (ROADMAP A10.7)"}
+_UNPORTED = {ir.BSDF_IRAWAN: "Irawan's woven cloth needs models/cloth.py (ROADMAP A10.7)"}
 
 
 class ShadePoint(NamedTuple):
@@ -521,6 +522,58 @@ def _zero_eval(sp, wi, wo):
 
 
 # ---------------------------------------------------------------------------
+# Hanrahan-Krueger single-scattering slab (src/bsdfs/hk.cpp). Layout:
+# reflectance = sigmaS * thickness (tau_s), specular = sigmaA * thickness
+# (tau_a), extra[0] = the HG asymmetry g. Glossy reflection and
+# transmission by single scattering, and an attenuated delta transmission.
+# ---------------------------------------------------------------------------
+
+def _hk_terms(sp, wi):
+    tau_s = torch.clamp_min(sp.reflectance, 0.0)
+    tau_d = tau_s + torch.clamp_min(sp.specular, 0.0)
+    albedo = m.safe_div(tau_s, torch.clamp_min(tau_d, 1e-20))
+    aci = torch.clamp_min(m.abs_cos_theta(wi), 1e-6)
+    p_dt = torch.mean(torch.exp(-tau_d / aci[..., None]), -1)
+    return tau_d, albedo, aci, p_dt
+
+
+def _hk_eval(sp, wi, wo):
+    tau_d, albedo, aci, p_dt = _hk_terms(sp, wi)
+    aco = torch.clamp_min(m.abs_cos_theta(wo), 1e-6)
+    phase_val, phase_pdf = phaselib.eval_pdf(phaselib.PHASE_HG, sp.extra[..., 0], wi, wo)
+    # reflection from a single-scattering slab (Hanrahan and Krueger 93)
+    f_r = albedo * (phase_val * m.safe_div(aci, aci + aco))[..., None] * (
+        1.0 - torch.exp(-tau_d * (1.0 / aci + 1.0 / aco)[..., None]))
+    # transmission, with the removable singularity at |ci| == |co| guarded
+    near = torch.abs(aci - aco) < 1e-4
+    e_i = torch.exp(-tau_d / aci[..., None])
+    e_o = torch.exp(-tau_d / aco[..., None])
+    f_t = albedo * phase_val[..., None] * torch.where(
+        near[..., None], tau_d / aco[..., None] * e_o,
+        m.safe_div(aci, aci - aco)[..., None] * (e_i - e_o))
+    reflect = m.cos_theta(wi) * m.cos_theta(wo) > 0.0
+    f = torch.where(reflect[..., None], f_r, f_t) * aco[..., None]
+    pdf = phase_pdf * (1.0 - p_dt)
+    return torch.clamp_min(f, 0.0), torch.clamp_min(pdf, 0.0)
+
+
+def _hk_sample(sp, wi, u_lobe, u2):
+    tau_d, albedo, aci, p_dt = _hk_terms(sp, wi)
+    pick_dt = u_lobe < p_dt
+    # delta transmission: the attenuated pass-through
+    w_dt = torch.exp(-tau_d / aci[..., None]) / torch.clamp_min(p_dt, 1e-6)[..., None]
+    # single scattering: a phase-function direction
+    wo_p, _ = phaselib.sample(phaselib.PHASE_HG, sp.extra[..., 0], wi, u2)
+    f_p, pdf_p = _hk_eval(sp, wi, wo_p)
+    w_p = m.safe_div(f_p, pdf_p[..., None])
+    ok_p = pdf_p > 1e-10
+    wo = torch.where(pick_dt[..., None], -wi, wo_p)
+    weight = torch.where(pick_dt[..., None], w_dt,
+                         torch.where(ok_p[..., None], torch.clamp(w_p, 0.0, 16.0), 0.0))
+    return wo, weight, torch.where(pick_dt, p_dt, pdf_p), pick_dt
+
+
+# ---------------------------------------------------------------------------
 # Coating adapter (src/bsdfs/coating.cpp, smooth dielectric coat;
 # roughcoating.cpp where alpha[0] > 0) over the one-level nested record
 # sp.nested. Layout: reflectance = sigmaA * thickness, specular = coat tint,
@@ -658,6 +711,7 @@ _EVAL = {
     ir.BSDF_DIFFUSE_TRANSMITTER: _diffuse_transmitter_eval,
     ir.BSDF_WARD: _ward_eval,
     ir.BSDF_MASK: _mask_eval,
+    ir.BSDF_HK: _hk_eval,
     ir.BSDF_CONDUCTOR: _zero_eval,
     ir.BSDF_DIELECTRIC: _zero_eval,
     ir.BSDF_THIN_DIELECTRIC: _zero_eval,
@@ -675,6 +729,7 @@ _SAMPLE = {
     ir.BSDF_DIFFUSE_TRANSMITTER: _diffuse_transmitter_sample,
     ir.BSDF_WARD: _ward_sample,
     ir.BSDF_MASK: _mask_sample,
+    ir.BSDF_HK: _hk_sample,
     ir.BSDF_CONDUCTOR: _conductor_sample,
     ir.BSDF_DIELECTRIC: _dielectric_sample,
     ir.BSDF_THIN_DIELECTRIC: _thin_dielectric_sample,

@@ -1,11 +1,13 @@
-"""Built-in test scenes (port of scene/builtin.py): the Cornell box, the
+"""Built-in test scenes (port of scene/builtin.py): the Cornell box, lit by
+its area light or by a point, spot or environment light, the
 mirror-caustic box, the Veach MIS sweep, the sphere-shadow mesh fixture and
-the big-mesh displaced sphere of the JAX package's bench. The geometry is built in numpy exactly as the JAX package
-builds it, then copied to `device` (the card unless the caller names
-another)."""
+the big-mesh displaced sphere of the JAX package's bench. The geometry is
+built in numpy exactly as the JAX package builds it, then copied to
+`device` (the card unless the caller names another)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import bvh as bvhlib
 from . import ir
@@ -73,6 +75,26 @@ def cornell_box(width=256, height=256, light_scale=1.0, area_light=True,
         device=device,
     )
     return scene, cam
+
+
+def cornell_box_lit(light="point", width=16, height=16, device="cuda"):
+    """The Cornell geometry without its area light, lit by a point light
+    (light="point"), a downward spot light ("spot") or a constant
+    environment through the open front ("env"). Returns (scene, camera)."""
+    scene, cam = cornell_box(width=width, height=height, area_light=False, device=device)
+    if light == "env":
+        return scene.replace(has_env=True, env_radiance=torch.tensor(
+            [1.0, 0.9, 0.7], device=scene.device)), cam
+    if light == "point":
+        recs = [{"kind": ir.DELTA_POINT, "position": [0.5, 0.8, 0.5],
+                 "intensity": [2.0, 1.8, 1.5]}]
+    elif light == "spot":
+        recs = [{"kind": ir.DELTA_SPOT, "position": [0.5, 0.95, 0.5],
+                 "direction": [0.0, -1.0, 0.0], "intensity": [4.0, 3.6, 3.0],
+                 "cutoff_deg": 40.0, "beam_deg": 30.0}]
+    else:
+        raise ValueError(light)
+    return scene.replace(delta_emitters=ir.build_delta_emitters(recs, device=device)), cam
 
 
 def _quad_adder(verts, tris, tri_mat, tri_rad):

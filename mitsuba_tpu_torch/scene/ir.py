@@ -14,7 +14,8 @@ Gradients: the float leaves that may carry `requires_grad` (set through
 `replace()`, as the JAX tests differentiate them) are `vertices` (hit
 points, normals, emitter samples and the boundary terms' edge points),
 `materials.reflectance`, `materials.alpha` (roughness), `textures` (texel
-lookups), `envmap.image` and `emitters.radiance`. Every other leaf, and
+lookups), `envmap.image`, `emitters.radiance` and the medium's `sigma_t`,
+`albedo` and `g` (models/medium.py). Every other leaf, and
 the derived tables (`edge_table`, `face_adj`, the emitter and envmap CDFs
 and pdfs, the mip strip, `tri_uv_density`, a `bvh`), is a constant built
 at scene assembly: moving `vertices` or `textures` leaves them at their
@@ -145,6 +146,58 @@ class AreaEmitters(_Replace):
 
 
 @dataclasses.dataclass
+class DeltaEmitters(_Replace):
+    """Point, spot and directional emitters (and collimated beams, which
+    only light-path sampling reaches). NEE is their only strategy: a BSDF
+    sample never hits one, so their MIS weight is 1.
+
+    kind (K,) int32 DELTA_*; position (K,3); direction (K,3) emission
+    direction (spot, directional); intensity (K,3): radiant intensity for
+    point and spot, irradiance for directional; cutoff (K,2): spot
+    (cos cutoffAngle, cos beamWidth)."""
+
+    kind: torch.Tensor
+    position: torch.Tensor
+    direction: torch.Tensor
+    intensity: torch.Tensor
+    cutoff: torch.Tensor
+
+
+DELTA_POINT = 0
+DELTA_SPOT = 1
+DELTA_DIRECTIONAL = 2
+DELTA_COLLIMATED = 3
+
+
+def build_delta_emitters(records: list, device="cuda") -> DeltaEmitters:
+    """records: dicts with kind, position, direction, intensity and, for a
+    spot, cutoff_deg and beam_deg (default 20 and 0.75 x cutoff)."""
+    k = len(records)
+    kind = np.zeros((k,), np.int32)
+    pos = np.zeros((k, 3), np.float32)
+    dirn = np.tile(np.asarray([0, 0, 1], np.float32), (k, 1))
+    inten = np.ones((k, 3), np.float32)
+    cut = np.tile(np.asarray([np.cos(np.deg2rad(20.0)), np.cos(np.deg2rad(15.0))],
+                             np.float32), (k, 1))
+    for i, r in enumerate(records):
+        kind[i] = r.get("kind", DELTA_POINT)
+        pos[i] = np.asarray(r.get("position", (0, 0, 0)), np.float32)
+        d = np.asarray(r.get("direction", (0, 0, 1)), np.float32)
+        dirn[i] = d / max(np.linalg.norm(d), 1e-12)
+        inten[i] = np.broadcast_to(np.asarray(r.get("intensity", 1.0), np.float32), (3,))
+        if "cutoff_deg" in r or "beam_deg" in r:
+            co = float(r.get("cutoff_deg", 20.0))
+            bw = float(r.get("beam_deg", co * 0.75))
+            cut[i] = (np.cos(np.deg2rad(co)), np.cos(np.deg2rad(bw)))
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return DeltaEmitters(kind=t(kind), position=t(pos), direction=t(dirn),
+                         intensity=t(inten), cutoff=t(cut))
+
+
+@dataclasses.dataclass
 class Scene(_Replace):
     """The whole flattened scene."""
 
@@ -172,6 +225,8 @@ class Scene(_Replace):
     # (T,) per-triangle texel density sqrt(uv area / world area) x lod_scale
     tri_uv_density: Optional[torch.Tensor] = None
     envmap: object = None       # scene/envmap.EnvMap; None = constant env
+    medium: object = None       # models/medium.Medium filling space; None = vacuum
+    delta_emitters: Optional[DeltaEmitters] = None
 
     # static metadata
     group_probs: tuple = ()
@@ -429,8 +484,7 @@ def uv_densities(vertices, indices, uvs, lod_scale) -> np.ndarray:
 # JAX scene fields the port has no counterpart for yet; a scene that sets
 # one of them cannot be carried across. (`clusters` is the JAX TPU kernel's
 # private table: from_jax drops it and carries `bvh` instead.)
-_UNPORTED = ("medium", "cloth", "delta_emitters", "occupancy", "vertex_colors",
-             "wire_params")
+_UNPORTED = ("cloth", "occupancy", "vertex_colors", "wire_params")
 _OPTIONAL = ("tex_mips", "tri_uv_density")
 
 
@@ -450,8 +504,10 @@ def from_jax(jscene, device="cuda") -> Scene:
     fields are copied. A JAX `bvh` comes across leaf by leaf, with the
     port's kernel tables added; its `clusters` (the TPU kernel's private
     table) are dropped, and need a `bvh` beside them. The texture stack,
-    its mip strip and an `envmap` come across as they are. Raises for the
-    parts of the JAX IR the port does not have yet."""
+    its mip strip, an `envmap`, a `medium` (its kind, phase and
+    phase_params stay Python values) and the `delta_emitters` come across
+    as they are. Raises for the parts of the JAX IR the port does not have
+    yet."""
     for name in _UNPORTED:
         if getattr(jscene, name, None) is not None:
             raise NotImplementedError(f"from_jax: scene.{name} is not ported")
@@ -475,6 +531,13 @@ def from_jax(jscene, device="cuda") -> Scene:
         elif f.name == "envmap":
             fields[f.name] = None if jscene.envmap is None else _envmap_from_jax(
                 jscene.envmap, device)
+        elif f.name == "medium":
+            fields[f.name] = None if jscene.medium is None else _medium_from_jax(
+                jscene.medium, device)
+        elif f.name == "delta_emitters":
+            de = jscene.delta_emitters
+            fields[f.name] = None if de is None else DeltaEmitters(
+                **_tensor_fields(DeltaEmitters, de, device))
         elif f.name in _OPTIONAL:
             x = getattr(jscene, f.name)
             fields[f.name] = None if x is None else _leaf(x, device)
@@ -503,3 +566,18 @@ def _envmap_from_jax(jem, device):
                   cond_cdf=_leaf(jem.cond_cdf, device), pdf_map=_leaf(jem.pdf_map, device),
                   scale=_leaf(jem.scale, device),
                   spectral=None if spectral is None else _leaf(spectral, device))
+
+
+def _medium_from_jax(jmed, device):
+    from ..models.medium import Medium
+
+    fields = {}
+    for f in dataclasses.fields(Medium):
+        x = getattr(jmed, f.name)
+        if f.name == "phase_params":
+            fields[f.name] = tuple(float(v) for v in x)
+        elif f.name in ("kind", "phase"):
+            fields[f.name] = int(x)
+        else:
+            fields[f.name] = None if x is None else _leaf(x, device)
+    return Medium(**fields)

@@ -150,10 +150,12 @@ def test_bsdf_gather_eval_sample(cornell):
 
 
 def test_unported_family_raises(cornell):
-    """The families that still raise name themselves and what they wait
-    for (the Hanrahan-Krueger slab, Irawan's cloth)."""
+    """The family that still raises names itself and what it waits for
+    (Irawan's cloth); the Hanrahan-Krueger slab gathers."""
     mat = torch.zeros(4, dtype=torch.int32)
-    for fam, what in ((tir.BSDF_HK, "hk.*phase"), (tir.BSDF_IRAWAN, "irawan.*cloth")):
+    scene = cornell[2].replace(bsdf_families=(tir.BSDF_DIFFUSE, tir.BSDF_HK))
+    assert tB.gather_shade_point(scene, mat, torch.zeros(4, 2)).type.shape == (4,)
+    for fam, what in ((tir.BSDF_IRAWAN, "irawan.*cloth"),):
         scene = cornell[2].replace(bsdf_families=(tir.BSDF_DIFFUSE, fam))
         with pytest.raises(NotImplementedError, match=what):
             tB.gather_shade_point(scene, mat, torch.zeros(4, 2))
@@ -164,10 +166,12 @@ def test_entry_points_default_to_the_card():
     asks for the CPU (the CPU tests pass device="cpu")."""
     import inspect
 
+    from mitsuba_tpu_torch.models import medium as tmed
     from mitsuba_tpu_torch.scene import bvh as tbvh
 
     builders = (tir.build_scene, tir.from_jax, tb.cornell_box, tb.sphere_shadow,
                 tb.displaced_sphere, tS.make_camera, tS.camera_from_jax,
-                tbvh.build_bvh)
+                tbvh.build_bvh, tb.cornell_box_lit, tir.build_delta_emitters,
+                tmed.make_homogeneous, tmed.make_grid, tmed.make_hgrid)
     for fn in builders:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
