@@ -36,9 +36,19 @@ against path.li); the 10,372-triangle sphere_shadow in the fog on the BVH
 kernel; the sigma_t and albedo gradients against finite differences. Each
 counts its kernel's launches from zero and reruns one launch per entry and
 batch size through the twin.
+Then the render front end: the Cornell box at 256x256, 64 spp, depth 8, as
+a user's scene names it (the LD sampler, the Gaussian filter, a thin lens)
+against the box, pinhole, independent render; every sampler kind on the
+card against the CPU, its time per dimension, and LD against independent;
+every filter's render and its splat on the card against the CPU; every
+sensor kind and a motion-blurred pinhole, the meters' closed forms, motion
+blur's smear and the thin-lens wavefront against path.li; the
+70,034-triangle sphere at 1,024x1,024 through the tiled film, read back
+from its EXR, against the full frame; a Cornell box with vertex colours
+and a wireframe material.
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The line [total] gives the whole script's seconds and those of
-the materials and the media phases.
+the materials, the media and the front-end phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -1759,32 +1769,43 @@ def blob_medium(cx, dev, res=GRID_RES):
     return medium.make_grid(dens.astype(np.float32), 6.0, 0.2, device=dev)
 
 
-def volpath_cell(name, scene, cam, cfg, dev, scopes=None):
-    """One render through common.render(volpath.li), counted: render_s,
-    samples/s, B1's launches (zeroed just before the render, read just
-    after; the first launch per entry and batch size rerun through the
-    twin), and the device busy share and top kernels of a profiled 4-spp
-    render (phase_profile). Returns (image, B1's launches, the profile's
-    scope shares)."""
+def li_cell(name, scene, cam, cfg, dev, li, scopes=None, profile=True, **fields):
+    """One render through common.render(li), counted: render_s, samples/s,
+    B1's launches (zeroed just before the render, read just after; the
+    first launch per entry and batch size rerun through the twin), and,
+    with `profile`, the device busy share and top kernels of a profiled
+    4-spp render (phase_profile). `fields` join the printed line. Returns
+    (image, B1's launches, the profile's scope shares, render_s)."""
     import dataclasses
 
-    from mitsuba_tpu_torch.integrators import common, volpath
+    from mitsuba_tpu_torch.integrators import common
     from mitsuba_tpu_torch.ops import brute_kernel as bk
 
     keeping, read = counted()
     with keeping:
-        img, render_s = timed(lambda: common.render(scene, cam, volpath.li, cfg), dev)
+        img, render_s = timed(lambda: common.render(scene, cam, li, cfg), dev)
     launches, plain, kept = read()
     require_b1(f"{name} render", launches, plain)
     checked = check_kept(bk, kept)
     say(name, resolution=f"{cam.width}x{cam.height}", spp=cfg.spp, max_depth=cfg.max_depth,
-        tris=scene.num_triangles, medium_kind=scene.medium.kind, render_s=round(render_s, 4),
+        tris=scene.num_triangles, **fields, render_s=round(render_s, 4),
         samples_per_s=round(cam.width * cam.height * cfg.spp / render_s),
         mean_radiance=round(float(img.mean()), 6), b1_launches=launches, b1_plain_calls=plain,
         twin_checked_rays=checked, twin_mismatches=0)
-    shares = phase_profile(name, scene, cam, dataclasses.replace(cfg, spp=4), li=volpath.li,
-                           scopes=scopes)
-    return img, launches, shares
+    shares = {}
+    if profile:
+        shares = phase_profile(name, scene, cam, dataclasses.replace(cfg, spp=4), li=li,
+                               scopes=scopes)
+    return img, launches, shares, render_s
+
+
+def volpath_cell(name, scene, cam, cfg, dev, scopes=None):
+    """li_cell through volpath.li. Returns (image, B1's launches, the
+    profile's scope shares)."""
+    from mitsuba_tpu_torch.integrators import volpath
+
+    return li_cell(name, scene, cam, cfg, dev, volpath.li, scopes,
+                   medium_kind=scene.medium.kind)[:3]
 
 
 def require_finite(what, img, shape):
@@ -1969,6 +1990,36 @@ def phase_volpath_mesh(dev, width=64):
     return path_launches("volpath_mesh", launches, "bvh")
 
 
+# the Cornell box's triangles: the back wall, and the short block's five faces
+BACK_WALL_TRIS = slice(4, 6)
+SHORT_BLOCK_TRIS = slice(10, 20)
+WIRE_PARAMS = (0.15, 0.2, 0.75, 0.95, 0.9, 0.1, 0.06)
+
+
+def vertex_color_cornell_args():
+    """build_scene's arguments for a Cornell variant: the back wall a
+    TEX_VERTEXCOLOR material with a colour per vertex from its position, the
+    short block a TEX_WIREFRAME material (WIRE_PARAMS: interior rgb, edge
+    rgb, line width). Numpy only, so the JAX package builds it too."""
+    from mitsuba_tpu_torch.scene import builtin, ir
+
+    scene, _ = builtin.cornell_box(8, 8, device="cpu")
+    mats = [{"type": int(t), "reflectance": r.tolist()}
+            for t, r in zip(scene.materials.type.numpy(), scene.materials.reflectance.numpy())]
+    rad = scene.emitters.radiance.numpy()
+    tri_rad = {t: rad[e].tolist() for t, e in enumerate(scene.tri_emitter.numpy()) if e >= 0}
+    tri_mat = scene.tri_material.numpy().copy()
+    tri_mat[BACK_WALL_TRIS] = len(mats)
+    tri_mat[SHORT_BLOCK_TRIS] = len(mats) + 1
+    mats += [{"type": ir.BSDF_DIFFUSE, "tex_reflectance": ir.TEX_VERTEXCOLOR},
+             {"type": ir.BSDF_DIFFUSE, "tex_reflectance": ir.TEX_WIREFRAME}]
+    verts = scene.vertices.numpy()
+    colors = np.stack([verts[:, 0], verts[:, 1], 1.0 - verts[:, 0]], -1) * 0.8 + 0.1
+    return dict(vertices=verts, indices=scene.indices.numpy(), tri_material=tri_mat,
+                materials=mats, tri_radiance=tri_rad, vertex_colors=colors.astype(np.float32),
+                wire_params=np.asarray(WIRE_PARAMS, np.float32))
+
+
 def phase_grad_medium(dev):
     """tests/test_grad_coverage.py:26-57 on the card: d mean / d sigma_t of
     make_homogeneous(s/2, s/2) at s = 0.3 (seed 3) and d mean / d albedo of
@@ -2025,6 +2076,414 @@ def phase_grad_medium(dev):
                 or abs(r["ad"] - r["fd"]) > MEDIUM_FD_RTOL * abs(r["fd"]) + 1e-5:
             raise AssertionError(f"medium gradient {name}: AD {r['ad']} against FD {r['fd']}")
     return path_launches("grad_medium", launches)
+
+
+# The render front end: the usual configuration of a user's scene (an LD
+# sampler, hdrfilm's default Gaussian filter, a thin lens), every sampler,
+# filter and sensor kind, the tiled film and the per-vertex textures.
+FRONTEND_SPP = 64
+FRONTEND_DEPTH = 8
+FRONTEND_APERTURE = 0.03
+FRONTEND_FOCUS = 1.9
+# a filtered, thin-lens, LD render against the box, pinhole, independent
+# one of the same scene and spp: the filters and the lens move no energy,
+# the samplers are unbiased, so the means agree to the noise and the
+# border's normalisation
+FRONT_MEAN_RTOL = 0.02
+# same-call (frontend, box) render pairs timed after the check: the host-
+# bound render_s moves with host load, so one pair cannot set the ratio
+FRONTEND_PAIRS = 3
+# the per-kind renders: 128x128, 16 spp, depth 4 (one chunk)
+SMALL, SMALL_SPP, SMALL_DEPTH = 128, 16, 4
+SAMPLER_DIMS = (0, 1, 5, 63, 511, 1023, 2048, 4096)
+SAMPLER_LANES = 1 << 20
+SAMPLER_TIMED_LANES = 1 << 19
+# tests/test_torch_samplers.py's bar: bit for bit where the code is integer
+# arithmetic; else 1e-6, apart from lanes a rotation mod 1 wraps (1 in 10^4)
+SAMPLER_ATOL = 1e-6
+SAMPLER_MAX_WRAP_SHARE = 1e-4
+SPLAT_RTOL, SPLAT_ATOL = 1e-5, 1e-6
+# tests/test_sensors.py's meter bars, tests/test_motion.py:17-28's smear
+METER_L = 0.8
+MOTION_MEAN_RTOL, MOTION_GRADIENT_RATIO = 0.15, 0.9
+WAVEFRONT_CHECK_ATOL = 1e-5
+TILED_WIDTH, TILED_ROWS = 1024, 64
+TILED_RTOL, TILED_ATOL = 1e-5, 1e-6
+VCOLOR_MIN_REL_DIFF = 0.05
+
+
+def thin_lens(cam):
+    """`cam` as hdrfilm's usual thin lens: aperture 0.03, focused at 1.9."""
+    import torch
+
+    from mitsuba_tpu_torch.models import sensor
+
+    dev = cam.to_world.device
+    return cam.replace(kind=sensor.SENSOR_THINLENS,
+                       aperture=torch.tensor(FRONTEND_APERTURE, device=dev),
+                       focus_dist=torch.tensor(FRONTEND_FOCUS, device=dev))
+
+
+def small_cornell(dev):
+    from mitsuba_tpu_torch.integrators import common
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(SMALL, SMALL, device=dev)
+    return scene, cam, common.RenderConfig(spp=SMALL_SPP, max_depth=SMALL_DEPTH, seed=0)
+
+
+def phase_frontend(dev, width=256):
+    """The slice at full width, as a user's scene names it: the Cornell box
+    at width x width, FRONTEND_SPP spp, path at depth 8 through
+    common.render, with the LD sampler, the Gaussian filter and a thin lens
+    at the builtin pose (li_cell: render_s, samples/s, B1's launches from
+    zero, twin reruns, busy share at 4 spp). The image finite, its mean
+    within FRONT_MEAN_RTOL of the box, independent, pinhole render of the
+    same scene and spp. Then FRONTEND_PAIRS more pairs of the two renders,
+    in alternating order, give the front end's cost as the spread of
+    render_s ratios. Returns B1's launches as {path: launches}."""
+    import dataclasses
+
+    from mitsuba_tpu_torch.film import film
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.samplers import qmc
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(width, width, device=dev)
+    box = common.RenderConfig(spp=FRONTEND_SPP, max_depth=FRONTEND_DEPTH, rr_depth=5, seed=0)
+    cfg = dataclasses.replace(box, sampler=qmc.SAMPLER_LD, filter=film.FILTER_GAUSSIAN)
+    img, launches, _, _ = li_cell("frontend", scene, thin_lens(cam), cfg, dev, path.li,
+                                  sampler="ld", filter="gaussian", sensor="thinlens")
+    ref, ref_s = timed(lambda: common.render(scene, cam, path.li, box), dev)
+    mean, ref_mean = float(img.mean()), float(ref.mean())
+    say("frontend_check", mean=round(mean, 6), box_pinhole_independent_mean=round(ref_mean, 6),
+        rel_diff=round(abs(mean - ref_mean) / ref_mean, 5), bar=FRONT_MEAN_RTOL,
+        box_render_s=round(ref_s, 4))
+    require_finite("frontend image", img, (width, width, 3))
+    if abs(mean - ref_mean) > FRONT_MEAN_RTOL * ref_mean:
+        raise AssertionError(f"frontend mean {mean} against {ref_mean}")
+    lens = thin_lens(cam)
+    renders = {"frontend": lambda: common.render(scene, lens, path.li, cfg),
+               "box": lambda: common.render(scene, cam, path.li, box)}
+    pairs = []
+    for i in range(FRONTEND_PAIRS):
+        order = ("frontend", "box") if i % 2 == 0 else ("box", "frontend")
+        secs = {k: timed(renders[k], dev)[1] for k in order}
+        pairs.append((secs["frontend"], secs["box"]))
+    ratios = sorted(f / b for f, b in pairs)
+    say("frontend_cost", pairs_render_s=[[round(f, 4), round(b, 4)] for f, b in pairs],
+        frontend_over_box=[round(r, 4) for r in ratios])
+    return path_launches("frontend_render", launches)
+
+
+def phase_samplers(dev):
+    """Every sampler kind: SAMPLER_LANES (pixel, sample) pairs at
+    SAMPLER_DIMS on the card against the port's CPU values (bit for bit for
+    independent, LD and Sobol'; else SAMPLER_ATOL with wrapped lanes
+    counted); ms per dimension at SAMPLER_TIMED_LANES lanes, host included;
+    tests/test_samplers.py:76-92 (direct.li at 16x16, 16 spp: LD closer to
+    a 1,024-spp LD reference than independent); a 128x128 x 16 spp depth-4
+    Cornell render per kind (li_cell), each mean but the stratified one's
+    within FRONT_MEAN_RTOL of the independent one's. Returns B1's launches
+    as {path: launches}."""
+    import dataclasses
+
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common, direct, path
+    from mitsuba_tpu_torch.samplers import qmc
+    from mitsuba_tpu_torch.scene import builtin
+
+    rs = np.random.RandomState(0)
+    idx = [torch.from_numpy(rs.randint(0, 2 ** 32, SAMPLER_LANES, dtype=np.uint64).astype(np.int64))
+           for _ in range(2)]
+    first = min(1 << 16, SAMPLER_LANES)
+    idx[1][:first] = torch.arange(first)       # the sample indices a render uses
+    on_card = [x.to(dev) for x in idx]
+    parity, ms = {}, {}
+    for kind, name in qmc.SAMPLER_NAMES.items():
+        wraps, max_diff = 0, 0.0
+        for dim in SAMPLER_DIMS:
+            got = qmc.sample_dim(kind, 11, *on_card, dim, 64).cpu().numpy()
+            want = qmc.sample_dim(kind, 11, *idx, dim, 64).numpy()
+            if kind in (qmc.SAMPLER_INDEPENDENT, qmc.SAMPLER_LD, qmc.SAMPLER_SOBOL):
+                if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+                    raise AssertionError(f"sampler {name} dim {dim}: card differs from the CPU")
+                continue
+            diff = np.abs(got - want)
+            wrap = (diff > 0.5) & (1.0 - diff <= SAMPLER_ATOL)
+            wraps += int(wrap.sum())
+            max_diff = max(max_diff, float(diff[~wrap].max()))
+            if max_diff > SAMPLER_ATOL:
+                raise AssertionError(f"sampler {name} dim {dim}: max diff {max_diff}")
+        if wraps > SAMPLER_MAX_WRAP_SHARE * SAMPLER_LANES * len(SAMPLER_DIMS):
+            raise AssertionError(f"sampler {name}: {wraps} wrapped lanes")
+        parity[name] = {"max_abs_diff": max_diff, "wrapped_lanes": wraps}
+        timed_idx = [x[:SAMPLER_TIMED_LANES] for x in on_card]
+        qmc.sample_dim(kind, 11, *timed_idx, 3, 64)
+        _, secs = timed(lambda: [qmc.sample_dim(kind, 11, *timed_idx, dim, 64)
+                                 for _ in range(5) for dim in SAMPLER_DIMS], dev)
+        ms[name] = round(secs * 1e3 / (5 * len(SAMPLER_DIMS)), 4)
+    say("samplers", lanes=SAMPLER_LANES, dims=list(SAMPLER_DIMS), parity=parity,
+        ms_per_dim_at=SAMPLER_TIMED_LANES, ms_per_dim=ms)
+
+    scene16, cam16 = builtin.cornell_box(16, 16, device=dev)
+    ref = common.render(scene16, cam16, direct.li, common.RenderConfig(
+        spp=1024, max_depth=2, seed=100, sampler=qmc.SAMPLER_LD))
+    errs = {}
+    for kind in (qmc.SAMPLER_INDEPENDENT, qmc.SAMPLER_LD):
+        img = common.render(scene16, cam16, direct.li, common.RenderConfig(
+            spp=16, max_depth=2, seed=7, sampler=kind))
+        errs[qmc.SAMPLER_NAMES[kind]] = float((img - ref).abs().mean())
+    say("samplers_ld_check", mean_abs_err=errs)
+    if not errs["ld"] < errs["independent"]:
+        raise AssertionError(f"LD sampler not closer than independent: {errs}")
+
+    scene, cam, cfg = small_cornell(dev)
+    means, paths = {}, {}
+    for kind, name in qmc.SAMPLER_NAMES.items():
+        img, launches, _, _ = li_cell(f"sampler_{name}", scene, cam,
+                                      dataclasses.replace(cfg, sampler=kind), dev,
+                                      path.li, profile=False, sampler=name)
+        paths.update(path_launches(f"sampler_{name}", launches))
+        require_finite(f"sampler {name} image", img, (SMALL, SMALL, 3))
+        means[name] = float(img.mean())
+    rel = {k: round(v / means["independent"] - 1.0, 5) for k, v in means.items()}
+    say("samplers_check", mean_rel_to_independent=rel, bar=FRONT_MEAN_RTOL)
+    # the stratified sampler draws every dimension of sample i from stratum
+    # i, so its dimensions correlate and the estimate is biased (ROADMAP
+    # C29, the JAX package's semantics, kept for parity): printed, not held
+    if any(abs(v) > FRONT_MEAN_RTOL for k, v in rel.items() if k != "stratified"):
+        raise AssertionError(f"sampler means {means}")
+    return paths
+
+
+def phase_filters(dev):
+    """Every reconstruction filter: a 128x128 x 16 spp depth-4 Cornell
+    render (li_cell), finite, its mean within FRONT_MEAN_RTOL of the box
+    render's; one splat of 524,288 fixed samples on the card against the
+    same splat on the CPU (per pixel, SPLAT_RTOL / SPLAT_ATOL: atomic adds
+    take another order), and its time. Returns B1's launches."""
+    import dataclasses
+
+    import torch
+
+    from mitsuba_tpu_torch.film import film
+    from mitsuba_tpu_torch.integrators import path
+
+    scene, cam, cfg = small_cornell(dev)
+    means, paths, splats = {}, {}, {}
+    rs = np.random.RandomState(1)
+    n = 1 << 19
+    pts = [torch.from_numpy(rs.uniform(-1, SMALL + 1, n).astype(np.float32)) for _ in range(2)]
+    val = torch.from_numpy(rs.uniform(0, 2, (n, 3)).astype(np.float32))
+    for kind, name in film.FILTER_NAMES.items():
+        img, launches, _, _ = li_cell(f"filter_{name}", scene, cam,
+                                      dataclasses.replace(cfg, filter=kind), dev,
+                                      path.li, profile=False, filter=name)
+        paths.update(path_launches(f"filter_{name}", launches))
+        require_finite(f"filter {name} image", img, (SMALL, SMALL, 3))
+        means[name] = float(img.mean())
+        args = (SMALL, SMALL, *(p.to(dev) for p in pts), val.to(dev), kind)
+        card = [x.cpu() for x in film.splat(*args)]
+        cpu = film.splat(SMALL, SMALL, *pts, val, kind)
+        for got, want in zip(card, cpu):
+            torch.testing.assert_close(got, want, rtol=SPLAT_RTOL, atol=SPLAT_ATOL)
+        _, secs = timed(lambda: [film.splat(*args) for _ in range(10)], dev)
+        splats[name] = {"taps": film.support(kind) ** 2, "ms": round(secs * 100, 4),
+                        "max_abs_diff": max(float((g - w).abs().max()) for g, w in zip(card, cpu))}
+    say("filters_check", means={k: round(v, 6) for k, v in means.items()}, splat_samples=n,
+        splat=splats)
+    if any(abs(v - means["box"]) > FRONT_MEAN_RTOL * means["box"] for v in means.values()):
+        raise AssertionError(f"filter means {means}")
+    return paths
+
+
+def phase_sensors(dev):
+    """Every sensor kind and a motion-blurred pinhole: a 128x128 x 16 spp
+    depth-4 Cornell render each (li_cell), finite. The three meters under a
+    constant environment METER_L: L, 4 pi L, pi L at tests/test_sensors.py's
+    bars; motion blur's smear (tests/test_motion.py:17-28); the wavefront
+    with the thin lens against common.render(path.li) at 64x64 x 16 spp
+    within WAVEFRONT_CHECK_ATOL. Returns B1's launches."""
+    from mitsuba_tpu_torch.integrators import common, direct, path, wavefront
+    from mitsuba_tpu_torch.models import sensor
+    from mitsuba_tpu_torch.scene import builtin, ir
+
+    scene, cam, cfg = small_cornell(dev)
+    cams = {}
+    for kind, name in sensor.SENSOR_NAMES.items():
+        flat = kind in (sensor.SENSOR_ORTHOGRAPHIC, sensor.SENSOR_TELECENTRIC)
+        cams[name] = sensor.make_camera([0.5, 0.5, -1.4], [0.5, 0.5, 0.0],
+                                        fov_x=0.6 if flat else 39.3077, width=SMALL,
+                                        height=SMALL, kind=kind, aperture=FRONTEND_APERTURE,
+                                        focus_dist=FRONTEND_FOCUS, kc=(0.2, 0.0), device=dev)
+    end = cam.to_world.clone()
+    end[0, 3] += 0.3
+    cams["perspective_motion"] = cam.replace(to_world_end=end)
+    paths, means = {}, {}
+    for name, c in cams.items():
+        img, launches, _, _ = li_cell(f"sensor_{name}", scene, c, cfg, dev, path.li,
+                                      profile=False, sensor=name)
+        paths.update(path_launches(f"sensor_{name}", launches))
+        require_finite(f"sensor {name} image", img, (SMALL, SMALL, 3))
+        means[name] = round(float(img.mean()), 6)
+
+    verts = np.asarray([[100, -100, 100], [101, -100, 100], [100, -100, 101]], np.float32)
+    env = ir.build_scene(verts, np.asarray([[0, 1, 2]], np.int32), np.zeros(1, np.int32),
+                         [{"type": ir.BSDF_DIFFUSE}], env_radiance=[METER_L] * 3, device=dev)
+    meters = {}
+    for kind, factor, spp, rtol in ((sensor.SENSOR_RADIANCEMETER, 1.0, 8, 1e-5),
+                                    (sensor.SENSOR_FLUENCEMETER, 4 * np.pi, 512, 2e-2),
+                                    (sensor.SENSOR_IRRADIANCEMETER, np.pi, 512, 2e-2)):
+        mcam = sensor.make_camera([0, 0, 0], [0, 0, 1], width=1, height=1, kind=kind, device=dev)
+        got = common.render(env, mcam, direct.li,
+                            common.RenderConfig(spp=spp, max_depth=2, seed=0)).cpu().numpy()
+        want = factor * METER_L
+        meters[sensor.SENSOR_NAMES[kind]] = {"value": float(got.mean()), "expected": want}
+        if not np.allclose(got, want, rtol=rtol, atol=1e-5 if rtol < 1e-4 else 0):
+            raise AssertionError(f"meter {sensor.SENSOR_NAMES[kind]}: {got} against {want}")
+
+    scene24, cam24 = builtin.cornell_box(24, 24, device=dev)
+    end24 = cam24.to_world.clone()
+    end24[0, 3] += 0.3
+    cfg24 = common.RenderConfig(spp=64, max_depth=2, seed=0)
+    static = common.render(scene24, cam24, path.li, cfg24).cpu().numpy()
+    blurred = common.render(scene24, cam24.replace(to_world_end=end24), path.li,
+                            cfg24).cpu().numpy()
+    gx_s = float(np.abs(np.diff(static.mean(-1), axis=1)).mean())
+    gx_b = float(np.abs(np.diff(blurred.mean(-1), axis=1)).mean())
+    mean_shift = abs(float(blurred.mean()) - float(static.mean())) / float(static.mean())
+
+    scene64, cam64 = builtin.cornell_box(64, 64, device=dev)
+    lens64 = thin_lens(cam64)
+    cfg64 = common.RenderConfig(spp=16, max_depth=SMALL_DEPTH, seed=1)
+    diff = float((wavefront.render(scene64, lens64, cfg64)
+                  - common.render(scene64, lens64, path.li, cfg64)).abs().max())
+    say("sensors_check", means=means, meters=meters, motion_gradient_ratio=round(gx_b / gx_s, 5),
+        motion_mean_shift=round(mean_shift, 5), thinlens_wavefront_vs_path_max_abs_diff=diff)
+    if not np.isfinite(blurred).all() or mean_shift >= MOTION_MEAN_RTOL \
+            or not gx_b < MOTION_GRADIENT_RATIO * gx_s:
+        raise AssertionError(f"motion blur: gradient {gx_b} against {gx_s}, mean shift "
+                             f"{mean_shift}")
+    if not diff <= WAVEFRONT_CHECK_ATOL:
+        raise AssertionError(f"thin-lens wavefront against path.li: {diff}")
+    return paths
+
+
+def read_scanline_exr(path, width, height):
+    """An uncompressed float32 B, G, R scanline EXR (TiledEXRWriter's
+    layout) read with numpy from its scanline offset table, which ends
+    where the first scanline starts."""
+    raw = Path(path).read_bytes()
+    line = 8 + width * 12
+    table = len(raw) - height * line - 8 * height
+    offsets = np.frombuffer(raw, np.uint64, height, table)
+    img = np.empty((height, width, 3), np.float32)
+    for y, off in enumerate(offsets.astype(np.int64)):
+        row_y, size = np.frombuffer(raw, np.int32, 2, off)
+        if row_y != y or size != width * 12:
+            raise AssertionError(f"scanline {y}: header ({row_y}, {size})")
+        bgr = np.frombuffer(raw, np.float32, 3 * width, off + 8).reshape(3, width)
+        img[y] = bgr[::-1].T
+    return img
+
+
+def phase_tiled(dev):
+    """builtin.displaced_sphere (70,034 triangles, B2) on a TILED_WIDTH^2
+    film, 16 spp, depth 4, through path.li: common.render's full frame and
+    film.tiled.render_tiled in TILED_ROWS-row bands into a temporary EXR,
+    read back with numpy (read_scanline_exr), equal within TILED_RTOL /
+    TILED_ATOL (each band resolves its own chunk: another sum order). Each
+    render's B2 launches from zero (none on B1, no plain walk), render_s,
+    the device peak GB from its start (peak_gb) and that peak less what was
+    allocated at its start (own_peak_gb: the render's own). Returns B2's
+    launches."""
+    import tempfile
+
+    import torch
+
+    from mitsuba_tpu_torch.film import tiled
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.displaced_sphere(width=TILED_WIDTH, height=TILED_WIDTH, device=dev)
+    cfg = common.RenderConfig(spp=16, max_depth=4, rr_depth=3, seed=0)
+
+    def counted_run(fn):
+        for counts in (bk, bvk):
+            counts.reset_counts()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_gb = torch.cuda.memory_allocated(dev) / 1e9
+        out, secs = timed(fn, dev)
+        launches, plain, brute = (dict(bvk.KERNEL_LAUNCHES), dict(bvk.PLAIN_CALLS),
+                                  dict(bk.KERNEL_LAUNCHES))
+        if min(launches["closest"], launches["any_hit"]) == 0 or any(plain.values()) \
+                or any(brute.values()):
+            raise AssertionError(f"tiled: B2 bypassed: {launches}, plain {plain}, "
+                                 f"brute {brute}")
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        return out, secs, launches, (round(peak_gb, 3), round(peak_gb - base_gb, 3))
+
+    full, full_s, full_launches, full_gb = counted_run(
+        lambda: common.render(scene, cam, path.li, cfg))
+    full = full.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        exr = Path(tmp) / "tiled.exr"
+        mean, tiled_s, launches, tiled_gb = counted_run(
+            lambda: tiled.render_tiled(scene, cam, path.li, cfg, str(exr), tile_rows=TILED_ROWS))
+        img = read_scanline_exr(exr, TILED_WIDTH, TILED_WIDTH)
+    diff = np.abs(img - full)
+    say("tiled", tris=scene.num_triangles, resolution=f"{TILED_WIDTH}x{TILED_WIDTH}",
+        spp=cfg.spp, max_depth=cfg.max_depth, band_rows=TILED_ROWS,
+        full_render_s=round(full_s, 4), tiled_render_s=round(tiled_s, 4),
+        full_peak_gb=full_gb[0], full_own_peak_gb=full_gb[1], tiled_peak_gb=tiled_gb[0],
+        tiled_own_peak_gb=tiled_gb[1],
+        full_bvh_launches=full_launches, tiled_bvh_launches=launches,
+        mean_radiance=round(float(full.mean()), 8), tiled_mean=round(mean, 8),
+        max_abs_diff=float(diff.max()))
+    if not np.isfinite(img).all() or not np.allclose(img, full, rtol=TILED_RTOL,
+                                                     atol=TILED_ATOL):
+        raise AssertionError(f"tiled film against the full frame: max diff {diff.max()}")
+    return {**path_launches("tiled_full_frame", full_launches, "bvh"),
+            **path_launches("tiled_render", launches, "bvh")}
+
+
+def phase_vertex_colors(dev):
+    """vertex_color_cornell_args's Cornell variant (vertex colours on the
+    back wall, a wireframe material on the short block) at 128x128 x 16 spp,
+    depth 4 (li_cell), finite; the back wall's pixels (primary hits on its
+    two triangles) differ in mean from the flat Cornell render's by more
+    than VCOLOR_MIN_REL_DIFF. Returns B1's launches."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.models import sensor
+    from mitsuba_tpu_torch.ops import trace
+    from mitsuba_tpu_torch.scene import ir
+
+    flat_scene, cam, cfg = small_cornell(dev)
+    scene = ir.build_scene(**vertex_color_cornell_args(), device=dev)
+    img, launches, _, _ = li_cell("vertex_colors", scene, cam, cfg, dev, path.li, profile=False)
+    flat = common.render(flat_scene, cam, path.li, cfg)
+    pix = torch.arange(SMALL * SMALL, device=dev)
+    o, d, _ = sensor.sample_rays(cam, (pix % SMALL).float() + 0.5, (pix // SMALL).float() + 0.5,
+                                 torch.zeros((pix.shape[0], 2), device=dev))
+    prim = trace.closest_hit(scene, o, d).prim.view(SMALL, SMALL)
+    wall = (prim >= BACK_WALL_TRIS.start) & (prim < BACK_WALL_TRIS.stop)
+    block = (prim >= SHORT_BLOCK_TRIS.start) & (prim < SHORT_BLOCK_TRIS.stop)
+    means = {what: [round(float(im[mask].mean()), 6) for im in (img, flat)]
+             for what, mask in (("back_wall", wall), ("short_block", block))}
+    rel = abs(means["back_wall"][0] - means["back_wall"][1]) / means["back_wall"][1]
+    say("vertex_colors_check", wall_pixels=int(wall.sum()), block_pixels=int(block.sum()),
+        coloured_vs_flat_means=means, back_wall_rel_diff=round(rel, 5))
+    require_finite("vertex-colour image", img, (SMALL, SMALL, 3))
+    if not rel > VCOLOR_MIN_REL_DIFF or int(wall.sum()) < 100:
+        raise AssertionError(f"vertex colours: back wall {means['back_wall']}")
+    return path_launches("vertex_colors", launches)
 
 
 def main(argv=None) -> int:
@@ -2094,10 +2553,18 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths.update(phase(dev))
         media_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
+    t_frontend = time.perf_counter()
+    frontend_s = {}
+    for phase in (phase_frontend, phase_samplers, phase_filters, phase_sensors, phase_tiled,
+                  phase_vertex_colors):
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        frontend_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
     t_end = time.perf_counter()
     say("total", seconds=round(t_end - t_start, 3),
         materials_seconds=round(t_media - t_materials, 3),
-        media_seconds=round(t_end - t_media, 3), media_phase_seconds=media_s)
+        media_seconds=round(t_frontend - t_media, 3), media_phase_seconds=media_s,
+        frontend_seconds=round(t_end - t_frontend, 3), frontend_phase_seconds=frontend_s)
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

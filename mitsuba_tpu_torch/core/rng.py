@@ -56,17 +56,14 @@ def uniform(seed, pixel, sample, dim) -> torch.Tensor:
 
 
 class SampleStream:
-    """Functional per-ray sample stream; the independent sampler only
-    (the QMC kinds of samplers/qmc.py are not ported)."""
+    """Functional per-ray sample stream. `kind` selects the sampler family
+    (samplers/qmc.py SAMPLER_*); `spp` is read by the stratified and
+    Hammersley samplers."""
 
     __slots__ = ("seed", "pixel", "sample", "dim", "kind", "spp")
 
     def __init__(self, seed, pixel, sample, dim: int = 0, kind: int = 0,
                  spp: int = 0):
-        if kind != 0:
-            raise NotImplementedError(
-                f"sampler kind {kind}: only the independent sampler (0) "
-                "is ported")
         self.seed = seed
         self.pixel = pixel
         self.sample = sample
@@ -75,9 +72,15 @@ class SampleStream:
         self.spp = spp
 
     def at_dim(self, dim):
-        """Sample one dimension; `dim` may be an int tensor (a bounce
-        counter)."""
-        return uniform(self.seed, self.pixel, self.sample, dim)
+        """Sample one dimension. `dim` may be an int tensor (a bounce
+        counter): the QMC kinds need a Python-int dim and, as in the JAX
+        package, fall back to hashing for a tensor one."""
+        if self.kind == 0 or not isinstance(dim, int):
+            return uniform(self.seed, self.pixel, self.sample, dim)
+        from ..samplers import qmc
+
+        return qmc.sample_dim(self.kind, self.seed, self.pixel, self.sample,
+                              dim, self.spp)
 
     def next_1d(self):
         u = self.at_dim(self.dim)

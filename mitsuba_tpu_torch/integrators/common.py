@@ -1,9 +1,12 @@
-"""Render orchestration: sample generation, spp chunking and the box-filter
-film (port of integrators/common.py).
+"""Render orchestration: sample generation, spp chunking and the film
+(port of integrators/common.py).
 
 The film is rendered as ray batches of all pixels x spp_chunk samples in
 pixel-major order, exactly as the JAX package orders them, so every sample
-gets the same (pixel, sample) indices and the same random numbers.
+gets the same (pixel, sample) indices and the same random numbers. The box
+filter sums each pixel's own samples; every other reconstruction filter
+splats each chunk into its neighbourhood (film/film.py) and the image is
+developed at the end.
 """
 from __future__ import annotations
 
@@ -13,8 +16,7 @@ from typing import Callable
 import torch
 
 from ..core.rng import SampleStream
-
-FILTER_BOX = 0
+from ..film import film as filmlib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,10 +28,10 @@ class RenderConfig:
     max_depth: int = 8          # path edges (Mitsuba's maxDepth)
     rr_depth: int = 5           # Russian roulette from this depth on
     seed: int = 0
-    filter: int = FILTER_BOX
+    filter: int = filmlib.FILTER_BOX
     spp_chunk: int = 0          # 0 = auto
     strict_normals: bool = False
-    sampler: int = 0            # only 0, the independent sampler, is ported
+    sampler: int = 0            # samplers/qmc.py SAMPLER_* family
     mis_mode: int = 0           # 0=power, 1=balance, 2=uniform
     hide_emitters: bool = False
 
@@ -47,38 +49,55 @@ class RenderConfig:
 LiFn = Callable
 
 
-def render(scene, cam, li_fn: LiFn, cfg: RenderConfig) -> torch.Tensor:
-    """Full-frame render -> (H, W, 3) float32 on the scene's device."""
+def render(scene, cam, li_fn: LiFn, cfg: RenderConfig, sample_offset: int = 0,
+           y0: int = 0, rows: int | None = None) -> torch.Tensor:
+    """Full-frame render -> (H, W, 3) float32 on the scene's device.
+
+    sample_offset shifts every pixel's sample indices: a progressive or
+    checkpointed render takes samples [offset, offset + spp) of one global
+    sample set in each pass. y0 and rows select the row band [y0, y0 + rows)
+    -> (rows, W, 3), with the full frame's pixel ids (film/tiled.py); the
+    band resolves its own spp chunk, and only the box filter renders one."""
     from ..models import sensor as sensorlib
 
-    if cfg.filter != FILTER_BOX:
-        raise NotImplementedError(f"film filter {cfg.filter}: only the box "
-                                  "filter is ported")
     dev = scene.device
     w, h = cam.width, cam.height
-    chunk = cfg.resolve_chunk(w, h)
+    rows = h - y0 if rows is None else rows
+    box = cfg.filter == filmlib.FILTER_BOX
+    if not box and (y0, rows) != (0, h):
+        raise ValueError("a row band renders with the box filter only")
+    chunk = cfg.resolve_chunk(w, rows)
     nchunks = cfg.spp // chunk
 
-    pixel_ids = torch.arange(w * h, dtype=torch.int64, device=dev)
+    pixel_ids = torch.arange(w * y0, w * (y0 + rows), dtype=torch.int64, device=dev)
     pixel_ids = torch.repeat_interleave(pixel_ids, chunk)        # pixel-major
-    sample_slot = torch.arange(chunk, dtype=torch.int64, device=dev).repeat(w * h)
+    sample_slot = torch.arange(chunk, dtype=torch.int64, device=dev).repeat(w * rows)
     px_base = (pixel_ids % w).to(torch.float32)
     py_base = (pixel_ids // w).to(torch.float32)
 
-    img = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    img = torch.zeros((rows, w, 3), dtype=torch.float32, device=dev)
+    wgt = None if box else torch.zeros((h, w), dtype=torch.float32, device=dev)
     for ci in range(nchunks):
-        sample_ids = sample_slot + ci * chunk
+        sample_ids = sample_slot + (ci * chunk + sample_offset)
         stream = SampleStream(cfg.seed, pixel_ids, sample_ids, 0,
                               kind=cfg.sampler, spp=cfg.spp)
         # pixel jitter + lens sample: sampler dims 0-3
         jx = stream.next_1d()
         jy = stream.next_1d()
         u_lens = stream.next_2d()
-        o, d, imp = sensorlib.sample_rays(cam, px_base + jx, py_base + jy, u_lens)
+        px, py = px_base + jx, py_base + jy
+        o, d, imp = sensorlib.sample_rays(cam, px, py, u_lens)
         radiance = li_fn(scene, cam, o, d, stream, cfg) * imp[:, None]
         radiance = torch.nan_to_num(radiance, nan=0.0, posinf=0.0, neginf=0.0)
-        img = img + torch.sum(radiance.reshape(h, w, chunk, 3), dim=2)
-    return img / max(float(nchunks * chunk), 1e-8)
+        if box:
+            img = img + torch.sum(radiance.reshape(rows, w, chunk, 3), dim=2)
+        else:
+            ci_img, ci_wgt = filmlib.splat(w, h, px, py, radiance, cfg.filter)
+            img = img + ci_img
+            wgt = wgt + ci_wgt
+    if box:
+        return img / max(float(nchunks * chunk), 1e-8)
+    return filmlib.develop(img, wgt)
 
 
 def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:

@@ -56,7 +56,10 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
     if fuse is None:
         fuse = trace.fuses(scene)
     if cfg.sampler != 0:
-        raise NotImplementedError("the wavefront needs the independent sampler")
+        # a lane's bounce dims depend on its data, which QMC's static dims
+        # cannot express: the JAX wavefront hashes whatever cfg.sampler says
+        raise ValueError("the wavefront needs the independent sampler (cfg.sampler=0); "
+                         "render QMC samplers through common.render")
     if cfg.spp % lanes_per_pixel:
         raise ValueError(f"spp {cfg.spp} is not a multiple of lanes_per_pixel "
                          f"{lanes_per_pixel}")

@@ -90,8 +90,9 @@ def gather_shade_point(scene, mat: torch.Tensor, uv: torch.Tensor,
     mixture weight in expectation. A textured blend weight is the blend
     row's `tex_reflectance` texture, averaged over its channels. `aux` is
     surface_interaction's dict: its mip footprint and uv partials, where
-    present, drive the trilinear and EWA lookups. (Vertex-colour and
-    wireframe textures are not ported: their scenes do not build.)"""
+    present, drive the trilinear and EWA lookups, and its "vcolor" and
+    "wirecolor" replace the reflectance of TEX_VERTEXCOLOR and TEX_WIREFRAME
+    rows."""
     _check_families(scene.bsdf_families)
     mats = scene.materials
     if ir.BSDF_BLEND in scene.bsdf_families:
@@ -106,6 +107,11 @@ def gather_shade_point(scene, mat: torch.Tensor, uv: torch.Tensor,
         mat = torch.where(is_blend, torch.clamp_min(child, 0), mat)
     aux = aux or {}
     sp = _gather(scene, mat, uv, aux.get("footprint"), aux.get("duvdx"), aux.get("duvdy"))
+    for has, key, tex_id in ((scene.has_vtx_colors, "vcolor", ir.TEX_VERTEXCOLOR),
+                             (scene.has_wireframe, "wirecolor", ir.TEX_WIREFRAME)):
+        if has and key in aux:
+            on = (mats.tex_reflectance[mat] == tex_id)[..., None]
+            sp = sp._replace(reflectance=torch.where(on, aux[key], sp.reflectance))
     if ir.BSDF_COATING in scene.bsdf_families:
         # one-level child gather for coating adapters (coating.cpp m_nested)
         sp = sp._replace(nested=_gather(scene, torch.clamp_min(mats.nested[mat, 0], 0), uv))

@@ -217,7 +217,9 @@ def surface_interaction(scene, o, d, its: Intersection, dd_dx=None, dd_dy=None):
     texel footprint (t x the triangle's uv density); dd_dx/dd_dy, the ray
     direction differentials of a 1-pixel raster step
     (sensor.ray_differentials), add the uv partials "duvdx"/"duvdy" that
-    drive EWA. Vertex colours and wireframes are not ported.
+    drive EWA. Scenes with vertex colours or wireframe materials add
+    "vcolor" (the interpolated vertex colour) or "wirecolor" (the edge
+    highlight), which gather_shade_point reads.
     """
     vi = scene.indices[its.prim]
     v0 = scene.vertices[vi[:, 0]]
@@ -310,4 +312,13 @@ def surface_interaction(scene, o, d, its: Intersection, dd_dx=None, dd_dy=None):
 
         out["duvdx"] = duv_of(dd_dx)
         out["duvdy"] = duv_of(dd_dy)
+    if scene.has_vtx_colors:
+        vc = scene.vertex_colors
+        out["vcolor"] = vc[vi[:, 0]] * w0 + vc[vi[:, 1]] * b1[:, None] + vc[vi[:, 2]] * b2[:, None]
+    if scene.has_wireframe:
+        # edge distance approximated in barycentric space (wireframe.cpp)
+        wp = scene.wire_params
+        edge = torch.minimum(torch.minimum(b1, b2), 1.0 - b1 - b2)
+        t_edge = torch.clamp(edge / torch.clamp_min(wp[6], 1e-6), 0.0, 1.0)
+        out["wirecolor"] = wp[3:6][None, :] + (wp[0:3] - wp[3:6])[None, :] * t_edge[:, None]
     return out

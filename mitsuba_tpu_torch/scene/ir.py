@@ -3,7 +3,7 @@ of scene/ir.py).
 
 The scene is a dataclass of tensors. The static fields (`num_triangles`,
 `bsdf_families`, `has_env`, `has_area`, `has_null`, `has_perturb`,
-`group_probs`) stay plain Python, as they are static pytree fields in the
+`has_vtx_colors`, `has_wireframe`, `group_probs`) stay plain Python, as they are static pytree fields in the
 JAX package. `bvh` holds the stackless BVH of big meshes (scene/bvh.py;
 None until `bvh.attach`), `envmap` a lat-long environment
 (scene/envmap.py; None for a constant one). Bitmap textures live in one
@@ -57,7 +57,11 @@ BSDF_NAMES = {v: k[5:].lower() for k, v in list(globals().items())
 MICROFACET_BECKMANN = 0
 MICROFACET_GGX = 1
 
+# texture ids below 0: a constant colour from the table, except the two
+# procedural per-interaction textures
 TEX_NONE = -1
+TEX_VERTEXCOLOR = -2   # barycentric per-vertex colours (vertexcolors.cpp)
+TEX_WIREFRAME = -3     # edge highlight from the barycentrics (wireframe.cpp)
 
 
 class _Replace:
@@ -227,6 +231,9 @@ class Scene(_Replace):
     envmap: object = None       # scene/envmap.EnvMap; None = constant env
     medium: object = None       # models/medium.Medium filling space; None = vacuum
     delta_emitters: Optional[DeltaEmitters] = None
+    vertex_colors: Optional[torch.Tensor] = None  # (V,3) for TEX_VERTEXCOLOR
+    # (7,) wireframe: interior rgb, edge rgb, line width in barycentric units
+    wire_params: Optional[torch.Tensor] = None
 
     # static metadata
     group_probs: tuple = ()
@@ -237,6 +244,10 @@ class Scene(_Replace):
     has_null: bool = False
     # a material carries a normal or bump map (surface_interaction perturbs)
     has_perturb: bool = False
+    # procedural per-interaction textures present (surface_interaction
+    # computes them only then)
+    has_vtx_colors: bool = False
+    has_wireframe: bool = False
     bvh: object = None  # scene/bvh.BVH, set by bvh.attach
 
     @property
@@ -305,11 +316,9 @@ def build_scene(
     textures: dicts with "data" (H, W[, 3]) and optional "transform" (uv
     scale and offset) and "nearest"; lod_scale (the world width of a pixel
     at unit distance) builds the mip strip and the per-triangle uv density
-    that drive trilinear and EWA lookups."""
-    for name, val in {"vertex_colors": vertex_colors, "wire_params": wire_params}.items():
-        if val is not None:
-            raise NotImplementedError(f"build_scene: {name} is not ported")
-
+    that drive trilinear and EWA lookups. vertex_colors (V,3) and
+    wire_params (7,) feed the TEX_VERTEXCOLOR and TEX_WIREFRAME
+    reflectance textures."""
     def t(a):
         return torch.as_tensor(a, device=device)
 
@@ -410,6 +419,11 @@ def build_scene(
         env_radiance=t(env),
         **{k: None if v is None else t(v) for k, v in tex.items()},
         tri_uv_density=None if uv_density is None else t(uv_density),
+        vertex_colors=(None if vertex_colors is None
+                       else t(np.asarray(vertex_colors, np.float32))),
+        wire_params=None if wire_params is None else t(np.asarray(wire_params, np.float32)),
+        has_vtx_colors=vertex_colors is not None,
+        has_wireframe=wire_params is not None,
         num_triangles=int(T),
         bsdf_families=families,
         has_env=bool(has_env),
@@ -484,8 +498,8 @@ def uv_densities(vertices, indices, uvs, lod_scale) -> np.ndarray:
 # JAX scene fields the port has no counterpart for yet; a scene that sets
 # one of them cannot be carried across. (`clusters` is the JAX TPU kernel's
 # private table: from_jax drops it and carries `bvh` instead.)
-_UNPORTED = ("cloth", "occupancy", "vertex_colors", "wire_params")
-_OPTIONAL = ("tex_mips", "tri_uv_density")
+_UNPORTED = ("cloth", "occupancy")
+_OPTIONAL = ("tex_mips", "tri_uv_density", "vertex_colors", "wire_params")
 
 
 def _leaf(x, device):
@@ -505,9 +519,9 @@ def from_jax(jscene, device="cuda") -> Scene:
     port's kernel tables added; its `clusters` (the TPU kernel's private
     table) are dropped, and need a `bvh` beside them. The texture stack,
     its mip strip, an `envmap`, a `medium` (its kind, phase and
-    phase_params stay Python values) and the `delta_emitters` come across
-    as they are. Raises for the parts of the JAX IR the port does not have
-    yet."""
+    phase_params stay Python values), the `delta_emitters`, `vertex_colors`
+    and `wire_params` come across as they are. Raises for the parts of the
+    JAX IR the port does not have yet."""
     for name in _UNPORTED:
         if getattr(jscene, name, None) is not None:
             raise NotImplementedError(f"from_jax: scene.{name} is not ported")

@@ -186,7 +186,8 @@ def test_port_imports_no_jax():
     files = sorted((ROOT / "mitsuba_tpu_torch").rglob("*.py"))
     assert len(files) > 15
     names = {f.relative_to(ROOT / "mitsuba_tpu_torch").as_posix() for f in files}
-    assert {"models/medium.py", "models/phase.py", "integrators/volpath.py"} <= names
+    assert {"models/medium.py", "models/phase.py", "integrators/volpath.py",
+            "samplers/qmc.py", "samplers/sobol.py", "film/film.py", "film/tiled.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
 

@@ -59,6 +59,36 @@ def test_sample_stream_dims():
 
 
 def test_qmc_kinds_raise():
-    with pytest.raises(NotImplementedError):
-        trng.SampleStream(0, torch.zeros(1, dtype=torch.int64),
-                          torch.zeros(1, dtype=torch.int64), kind=1)
+    """Every sampler kind constructs; a kind outside the seven raises at its
+    first QMC draw, as the JAX package's sample_dim does."""
+    from mitsuba_tpu_torch.samplers import qmc as tq
+
+    z = torch.zeros(1, dtype=torch.int64)
+    for kind in tq.SAMPLER_NAMES:
+        trng.SampleStream(0, z, z, kind=kind)
+    with pytest.raises(ValueError, match="unknown sampler kind 7"):
+        trng.SampleStream(0, z, z, kind=7).next_1d()
+
+
+@pytest.mark.parametrize("kind", range(7))
+def test_sample_stream_kinds(kind):
+    """SampleStream(kind=k) draws the JAX stream's numbers: qmc.sample_dim
+    for Python-int dims (bit for bit where the JAX code is integer
+    arithmetic, within 1e-6 elsewhere), the hash for a tensor dim."""
+    from mitsuba_tpu.samplers import qmc as jq
+
+    _, pixel, sample, _ = _parts(4)
+    pixel, sample = pixel[:4096], sample[:4096]
+    js = jrng.SampleStream(jnp.uint32(5), jnp.asarray(pixel), jnp.asarray(sample),
+                           kind=kind, spp=64)
+    ts = trng.SampleStream(5, _t(pixel), _t(sample), kind=kind, spp=64)
+    exact = kind in (jq.SAMPLER_INDEPENDENT, jq.SAMPLER_LD, jq.SAMPLER_SOBOL)
+    for _ in range(3):
+        j, t = np.asarray(js.next_2d()), ts.next_2d().numpy()
+        if exact:
+            assert np.array_equal(j.view(np.int32), t.view(np.int32))
+        else:
+            np.testing.assert_allclose(t, j, atol=1e-6, rtol=0)
+    dims = np.random.RandomState(kind).randint(0, 80, 4096).astype(np.int32)
+    assert np.array_equal(np.asarray(js.at_dim(jnp.asarray(dims))).view(np.int32),
+                          ts.at_dim(torch.from_numpy(dims)).numpy().view(np.int32))
