@@ -46,9 +46,17 @@ blur's smear and the thin-lens wavefront against path.li; the
 70,034-triangle sphere at 1,024x1,024 through the tiled film, read back
 from its EXR, against the full frame; a Cornell box with vertex colours
 and a wireframe material.
+Then the user's entry point, `python -m mitsuba_tpu_torch scene.xml -o
+out.exr`, on scene files written from the fixtures (one OBJ per material
+run): the front end's Cornell configuration (B1), the 70,034-triangle mesh
+at 128x128 (B2, the CLI attaches the BVH) and at 1,024x1,024 through the
+tiled film (`-D film=tiledhdrfilm`); each by the real command as a
+subprocess and by cli.main in process with its launches counted and twin
+checked, the loaded arrays equal to the fixture's, the images equal to the
+in-process renders of the builtin scenes.
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The line [total] gives the whole script's seconds and those of
-the materials, the media and the front-end phases.
+the materials, the media, the front-end and the CLI phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -2371,29 +2379,11 @@ def phase_sensors(dev):
     return paths
 
 
-def read_scanline_exr(path, width, height):
-    """An uncompressed float32 B, G, R scanline EXR (TiledEXRWriter's
-    layout) read with numpy from its scanline offset table, which ends
-    where the first scanline starts."""
-    raw = Path(path).read_bytes()
-    line = 8 + width * 12
-    table = len(raw) - height * line - 8 * height
-    offsets = np.frombuffer(raw, np.uint64, height, table)
-    img = np.empty((height, width, 3), np.float32)
-    for y, off in enumerate(offsets.astype(np.int64)):
-        row_y, size = np.frombuffer(raw, np.int32, 2, off)
-        if row_y != y or size != width * 12:
-            raise AssertionError(f"scanline {y}: header ({row_y}, {size})")
-        bgr = np.frombuffer(raw, np.float32, 3 * width, off + 8).reshape(3, width)
-        img[y] = bgr[::-1].T
-    return img
-
-
 def phase_tiled(dev):
     """builtin.displaced_sphere (70,034 triangles, B2) on a TILED_WIDTH^2
     film, 16 spp, depth 4, through path.li: common.render's full frame and
     film.tiled.render_tiled in TILED_ROWS-row bands into a temporary EXR,
-    read back with numpy (read_scanline_exr), equal within TILED_RTOL /
+    read back (io.image.read_exr), equal within TILED_RTOL /
     TILED_ATOL (each band resolves its own chunk: another sum order). Each
     render's B2 launches from zero (none on B1, no plain walk), render_s,
     the device peak GB from its start (peak_gb) and that peak less what was
@@ -2405,6 +2395,7 @@ def phase_tiled(dev):
 
     from mitsuba_tpu_torch.film import tiled
     from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.io import image
     from mitsuba_tpu_torch.ops import brute_kernel as bk
     from mitsuba_tpu_torch.ops import bvh_kernel as bvk
     from mitsuba_tpu_torch.scene import builtin
@@ -2435,7 +2426,7 @@ def phase_tiled(dev):
         exr = Path(tmp) / "tiled.exr"
         mean, tiled_s, launches, tiled_gb = counted_run(
             lambda: tiled.render_tiled(scene, cam, path.li, cfg, str(exr), tile_rows=TILED_ROWS))
-        img = read_scanline_exr(exr, TILED_WIDTH, TILED_WIDTH)
+        img = image.read_exr(exr)
     diff = np.abs(img - full)
     say("tiled", tris=scene.num_triangles, resolution=f"{TILED_WIDTH}x{TILED_WIDTH}",
         spp=cfg.spp, max_depth=cfg.max_depth, band_rows=TILED_ROWS,
@@ -2484,6 +2475,262 @@ def phase_vertex_colors(dev):
     if not rel > VCOLOR_MIN_REL_DIFF or int(wall.sum()) < 100:
         raise AssertionError(f"vertex colours: back wall {means['back_wall']}")
     return path_launches("vertex_colors", launches)
+
+
+# The user's entry point: `python -m mitsuba_tpu_torch scene.xml -o out.exr`
+# on scene files written from the builtin fixtures, one OBJ per run of
+# triangles with one material and emitter. [cli_cornell] is [frontend]'s
+# configuration (B1), [cli_mesh] the big mesh's (B2, the BVH attached by the
+# CLI above trace.BRUTE_MAX_TRIS triangles), [cli_tiled] the same file with
+# -D film=tiledhdrfilm -D res=1024.
+CORNELL_LOOKAT = ("0.5, 0.5, -1.4", "0.5, 0.5, 0.0", "0, 1, 0")
+CORNELL_FOV = "39.3077"
+CLI_CORNELL_WIDTH, CLI_MESH_WIDTH, CLI_TILED_WIDTH = 256, 128, 1024
+CLI_TIMEOUT_S = 300
+
+
+def obj_groups(vertices, indices, tri_material, tri_emitter, radiance):
+    """Runs of consecutive triangles sharing a material and an emitter, each
+    as (material, radiance or None, its vertices in first-use order, its
+    indices into them): save_obj writes them and load_obj reads the same
+    arrays back."""
+    key = np.stack([tri_material, tri_emitter], 1)
+    cuts = np.flatnonzero((key[1:] != key[:-1]).any(1)) + 1
+    groups = []
+    for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(indices)]):
+        tris = indices[lo:hi]
+        first = np.unique(tris.ravel(), return_index=True)[1]
+        used = tris.ravel()[np.sort(first)]
+        remap = np.full(vertices.shape[0], -1, np.int64)
+        remap[used] = np.arange(len(used))
+        e = int(tri_emitter[lo])
+        groups.append((int(tri_material[lo]), None if e < 0 else radiance[e],
+                       vertices[used], remap[tris].astype(np.int32)))
+    return groups
+
+
+def _csv(v):
+    return ", ".join(repr(float(x)) for x in np.asarray(v, np.float32).ravel())
+
+
+def write_scene_files(d, scene, sensor_xml, integrator_xml):
+    """`scene` (a port Scene of diffuse materials) as OBJ files and one
+    scene.xml in `d`. Returns (the XML's path, the groups written)."""
+    from mitsuba_tpu_torch.io import mesh
+
+    def host(x):
+        return x.detach().cpu().numpy()
+
+    groups = obj_groups(host(scene.vertices), host(scene.indices), host(scene.tri_material),
+                        host(scene.tri_emitter), host(scene.emitters.radiance))
+    refl = host(scene.materials.reflectance)
+    parts = ['<scene version="0.6.0">', '<default name="film" value="hdrfilm"/>',
+             integrator_xml, sensor_xml]
+    parts += [f'<bsdf type="diffuse" id="m{i}"><rgb name="reflectance" value="{_csv(r)}"/></bsdf>'
+              for i, r in enumerate(refl)]
+    for g, (mat, rad, verts, tris) in enumerate(groups):
+        mesh.save_obj(Path(d) / f"g{g:02d}.obj", verts, tris)
+        emitter = ("" if rad is None else
+                   f'<emitter type="area"><rgb name="radiance" value="{_csv(rad)}"/></emitter>')
+        parts.append(f'<shape type="obj"><string name="filename" value="g{g:02d}.obj"/>'
+                     f'<ref id="m{mat}"/>{emitter}</shape>')
+    xml_path = Path(d) / "scene.xml"
+    xml_path.write_text("\n".join(parts + ["</scene>"]) + "\n")
+    return xml_path, groups
+
+
+def check_loaded(what, xml_path, groups, scene, cam, dev, defaults=None):
+    """The scene file loaded in process: its vertices and indices equal the
+    groups' (offset, concatenated) bit for bit, its triangles' corners and
+    its camera pose the fixture's. Returns the triangle count."""
+    import torch
+
+    from mitsuba_tpu_torch.scene import xml
+
+    loaded, lcam, _, _ = xml.load_xml(xml_path, defaults=defaults, device=dev)
+    verts = np.concatenate([g[2] for g in groups])
+    offs = np.cumsum([0] + [len(g[2]) for g in groups[:-1]])
+    tris = np.concatenate([g[3] + o for g, o in zip(groups, offs)])
+    got_v, got_i = loaded.vertices.cpu().numpy(), loaded.indices.cpu().numpy()
+    corners = (loaded.vertices[loaded.indices.long()] == scene.vertices[scene.indices.long()])
+    if not (np.array_equal(got_v, verts) and np.array_equal(got_i, tris)
+            and bool(corners.all()) and torch.equal(lcam.to_world, cam.to_world)):
+        raise AssertionError(f"{what}: the loaded arrays differ from the fixture's")
+    return loaded.num_triangles
+
+
+def run_cli_subprocess(xml_path, out, extra=()):
+    """The real command, `python -m mitsuba_tpu_torch <xml> -o <out>`, from
+    the checkout's root. Returns its wall seconds (CUDA start-up and
+    loading the built kernels included); raises on a non-zero exit."""
+    import os
+
+    cmd = [sys.executable, "-m", "mitsuba_tpu_torch", str(xml_path), "-o", str(out), "-q",
+           *extra]
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} exited {res.returncode}:\n{res.stderr[-4000:]}")
+    return wall
+
+
+def run_cli_counted(mod, argv, dev):
+    """cli.main(argv) in process with `mod`'s launches counted from zero
+    and the first launch per entry and batch size rerun through the plain
+    twin (check_kept). Returns (launches, twin-checked batch sizes, the
+    run's Time.load / Time.bvh / Time.render seconds)."""
+    import torch
+
+    from mitsuba_tpu_torch import cli
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.utils import stats
+
+    stats.get_statistics().reset()
+    for counts in (bk, bvk):
+        counts.reset_counts()
+    keeping, kept = keeping_launches(mod)
+    with keeping:
+        code = cli.main([str(a) for a in argv] + ["-q"])
+    torch.cuda.synchronize(dev)
+    launches, plain = dict(mod.KERNEL_LAUNCHES), {**bk.PLAIN_CALLS, **bvk.PLAIN_CALLS}
+    other = bvk if mod is bk else bk
+    if code != 0 or min(launches["closest"], launches["any_hit"]) == 0 or any(plain.values()) \
+            or any(other.KERNEL_LAUNCHES.values()):
+        raise AssertionError(f"cli {argv}: exit {code}, launches {launches}, plain calls "
+                             f"{plain}, other kernel {other.KERNEL_LAUNCHES}")
+    checked = check_kept(mod, kept)
+    st = stats.get_statistics()
+    times = {f"{k}_s": round(st.counter(f"Time.{k}").value, 4) for k in ("load", "bvh", "render")}
+    return launches, checked, times
+
+
+def phase_cli_cornell(dev):
+    """[frontend]'s configuration as a user's scene file: builtin.cornell_box
+    written as one OBJ per material run, `ldsampler` at FRONTEND_SPP,
+    hdrfilm with a Gaussian rfilter, a thin lens (aperture 0.03, focus 1.9),
+    CLI_CORNELL_WIDTH^2, path at depth 8. The real command renders it (exit code checked, wall time);
+    cli.main renders it in process with B1's launches counted and twin
+    checked; the loaded arrays equal the fixture's bit for bit; both EXRs
+    equal the in-process render of the builtin scene at the goldens' bar
+    (check_golden); the device busy share of a 4-spp render of the loaded
+    scene (phase_profile). Returns B1's launches as {path: launches}."""
+    import dataclasses
+    import tempfile
+
+    from mitsuba_tpu_torch.film import film
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.io import image
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.samplers import qmc
+    from mitsuba_tpu_torch.scene import builtin, xml
+
+    width, spp = CLI_CORNELL_WIDTH, FRONTEND_SPP
+    scene, cam = builtin.cornell_box(width, width, device=dev)
+    cfg = common.RenderConfig(spp=spp, max_depth=FRONTEND_DEPTH, rr_depth=5, seed=0,
+                              sampler=qmc.SAMPLER_LD, filter=film.FILTER_GAUSSIAN)
+    ref = common.render(scene, thin_lens(cam), path.li, cfg).cpu().numpy()
+    origin, target, up = CORNELL_LOOKAT
+    sensor_xml = (f'<sensor type="thinlens"><float name="fov" value="{CORNELL_FOV}"/>'
+                  f'<float name="apertureRadius" value="{FRONTEND_APERTURE}"/>'
+                  f'<float name="focusDistance" value="{FRONTEND_FOCUS}"/>'
+                  f'<transform name="toWorld"><lookat origin="{origin}" target="{target}" '
+                  f'up="{up}"/></transform><sampler type="ldsampler"><integer '
+                  f'name="sampleCount" value="{spp}"/></sampler><film type="$film">'
+                  f'<integer name="width" value="{width}"/><integer name="height" '
+                  f'value="{width}"/><rfilter type="gaussian"/></film></sensor>')
+    integrator_xml = (f'<integrator type="path"><integer name="maxDepth" '
+                      f'value="{FRONTEND_DEPTH}"/></integrator>')
+    with tempfile.TemporaryDirectory() as tmp:
+        xml_path, groups = write_scene_files(tmp, scene, sensor_xml, integrator_xml)
+        tris = check_loaded("cli_cornell", xml_path, groups, scene, cam, dev)
+        wall = run_cli_subprocess(xml_path, Path(tmp) / "sub.exr")
+        launches, checked, times = run_cli_counted(bk, [xml_path, "-o", Path(tmp) / "in.exr"], dev)
+        sub, inproc = (image.read_exr(Path(tmp) / name) for name in ("sub.exr", "in.exr"))
+        loaded, lcam, lcfg, _ = xml.load_xml(xml_path, device=dev)
+    if lcfg != cfg:
+        raise AssertionError(f"cli_cornell: loaded config {lcfg} against {cfg}")
+    (flips, max_diff), (flips_in, max_diff_in) = check_golden(sub, ref), check_golden(inproc, ref)
+    say("cli_cornell", resolution=f"{width}x{width}", spp=spp, tris=tris, obj_files=len(groups),
+        subprocess_wall_s=round(wall, 3), **times, b1_launches=launches,
+        twin_checked_rays=checked, twin_mismatches=0, pixels_off=[flips, flips_in],
+        max_abs_diff=[max_diff, max_diff_in], mean_radiance=round(float(inproc.mean()), 6))
+    phase_profile("cli_cornell", loaded, lcam, dataclasses.replace(lcfg, spp=4), li=path.li)
+    return path_launches("cli_cornell", launches)
+
+
+def phase_cli_mesh(dev):
+    """builtin.displaced_sphere_mesh (70,034 triangles) as OBJ files under
+    bench.py's big-mesh configuration: CLI_MESH_WIDTH^2, 16 spp (independent),
+    hdrfilm (box), path at depth 4, rr 3. [cli_mesh]: the real command and
+    cli.main (B2's launches counted and twin checked; the CLI attaches the
+    BVH), the loaded arrays equal the fixture's, both images equal
+    common.render of builtin.displaced_sphere at the goldens' bar.
+    [cli_tiled]: the same file with -D film=tiledhdrfilm -D res=CLI_TILED_WIDTH,
+    by the real command and by cli.main, against the full-frame cli.main
+    render at C32's bar. Returns B2's launches of both as {path: launches}."""
+    import tempfile
+
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.io import image
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.scene import builtin
+
+    width, tiled_width = CLI_MESH_WIDTH, CLI_TILED_WIDTH
+    scene, cam = builtin.displaced_sphere(width=width, height=width, device=dev)
+    cfg = common.RenderConfig(spp=16, max_depth=4, rr_depth=3, seed=0)
+    ref = common.render(scene, cam, path.li, cfg).cpu().numpy()
+    view = builtin.DISPLACED_SPHERE_CAMERA
+    sensor_xml = (f'<default name="res" value="{width}"/><sensor type="perspective">'
+                  f'<float name="fov" value="{view["fov_x"]}"/><transform name="toWorld">'
+                  f'<lookat origin="{_csv(view["origin"])}" target="{_csv(view["target"])}" '
+                  f'up="0, 1, 0"/></transform><sampler type="independent"><integer '
+                  f'name="sampleCount" value="16"/></sampler><film type="$film"><integer '
+                  f'name="width" value="$res"/><integer name="height" value="$res"/></film>'
+                  f'</sensor>')
+    integrator_xml = ('<integrator type="path"><integer name="maxDepth" value="4"/>'
+                      '<integer name="rrDepth" value="3"/></integrator>')
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        xml_path, groups = write_scene_files(tmp, scene, sensor_xml, integrator_xml)
+        tris = check_loaded("cli_mesh", xml_path, groups, scene, cam, dev)
+        wall = run_cli_subprocess(xml_path, tmp / "sub.exr")
+        launches, checked, times = run_cli_counted(bvk, [xml_path, "-o", tmp / "in.exr"], dev)
+        sub, inproc = image.read_exr(tmp / "sub.exr"), image.read_exr(tmp / "in.exr")
+        (flips, max_diff), (flips_in, max_diff_in) = check_golden(sub, ref), \
+            check_golden(inproc, ref)
+        say("cli_mesh", resolution=f"{width}x{width}", spp=cfg.spp, tris=tris,
+            obj_files=len(groups), subprocess_wall_s=round(wall, 3), **times,
+            bvh_launches=launches, twin_checked_rays=checked, twin_mismatches=0,
+            pixels_off=[flips, flips_in], max_abs_diff=[max_diff, max_diff_in],
+            mean_radiance=round(float(inproc.mean()), 8))
+        out.update(path_launches("cli_mesh", launches, "bvh"))
+
+        big = ["-D", f"res={tiled_width}"]
+        tiled_args = ["-D", "film=tiledhdrfilm", *big]
+        _, _, full_times = run_cli_counted(bvk, [xml_path, "-o", tmp / "full.exr", *big], dev)
+        wall = run_cli_subprocess(xml_path, tmp / "sub_tiled.exr", tiled_args)
+        launches, checked, times = run_cli_counted(
+            bvk, [xml_path, "-o", tmp / "tiled.exr", *tiled_args], dev)
+        full = image.read_exr(tmp / "full.exr")
+        diffs = []
+        for name in ("sub_tiled.exr", "tiled.exr"):
+            img = image.read_exr(tmp / name)
+            diffs.append(float(np.abs(img - full).max()))
+            if img.shape != full.shape or not np.allclose(img, full, rtol=TILED_RTOL,
+                                                          atol=TILED_ATOL):
+                raise AssertionError(f"cli_tiled {name} against the full frame: max diff "
+                                     f"{diffs[-1]}")
+        say("cli_tiled", resolution=f"{tiled_width}x{tiled_width}", spp=cfg.spp,
+            subprocess_wall_s=round(wall, 3), **times,
+            full_frame_render_s=full_times["render_s"], bvh_launches=launches,
+            twin_checked_rays=checked, twin_mismatches=0, max_abs_diff=diffs)
+        out.update(path_launches("cli_tiled", launches, "bvh"))
+    return out
 
 
 def main(argv=None) -> int:
@@ -2560,11 +2807,18 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths.update(phase(dev))
         frontend_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
+    t_cli = time.perf_counter()
+    cli_s = {}
+    for phase in (phase_cli_cornell, phase_cli_mesh):
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        cli_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
     t_end = time.perf_counter()
     say("total", seconds=round(t_end - t_start, 3),
         materials_seconds=round(t_media - t_materials, 3),
         media_seconds=round(t_frontend - t_media, 3), media_phase_seconds=media_s,
-        frontend_seconds=round(t_end - t_frontend, 3), frontend_phase_seconds=frontend_s)
+        frontend_seconds=round(t_cli - t_frontend, 3), frontend_phase_seconds=frontend_s,
+        cli_seconds=round(t_end - t_cli, 3), cli_phase_seconds=cli_s)
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -10,6 +10,9 @@ The ray-triangle searches run hand-written CUDA kernels on the GPU
 differentiable with autograd: the searches are detached, and gradients
 reach the geometry through the recomputed hit and the edge-sampled
 boundary terms (`integrators/boundary.py`, `integrators/reparam.py`).
+
+`python -m mitsuba_tpu_torch scene.xml -o out.exr` renders a Mitsuba 0.6
+scene file on the card (`cli.py`, `scene/xml.py`; `--cpu` for the CPU).
 """
 
 import torch

@@ -1,0 +1,341 @@
+"""Command-line renderer: `python -m mitsuba_tpu_torch scene.xml [-o out.exr]`
+(port of cli.py).
+
+The analog of the `mitsuba` CLI frontend (src/mitsuba/mitsuba.cpp:129
+mitsuba_app): parse the scene, pick the integrator, render on the CUDA
+device (or the CPU with --cpu), develop the film to disk. Flags mirror the
+JAX package's CLI:
+  -D key=value   parameter substitution ($key in XML, mitsuba.cpp:58,168)
+  -o file        output (EXR/PNG/PFM/NPY/HDR by extension)
+  -s spp         override sample count
+  -d depth       override maxDepth
+  -t seed        RNG seed
+  -a path        prepend a file-resolver search path
+  -q / -v        quiet / debug log level; --log-file appends records
+A scene above trace.BRUTE_MAX_TRIS triangles gets its BVH here, so it
+takes the BVH kernel; a smaller one the brute-force kernel.
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import dataclasses
+import os
+import sys
+import time
+
+# the integrators whose Li function the port has; every other name of the
+# JAX CLI (aov, spectral, bdpt, vpl, the light-path renderers) waits for A12
+_LI_NAMES = {"path": "path", "mypath": "path", "mypath2": "path",
+             "direct": "direct", "volpath": "volpath",
+             "volpath_simple": "volpath"}
+
+
+def build_argparser():
+    ap = argparse.ArgumentParser(
+        prog="mitsuba_tpu_torch",
+        description="PyTorch + CUDA Monte Carlo renderer (Mitsuba-compatible scenes)",
+    )
+    ap.add_argument("scene", nargs="+", help="scene XML file(s)")
+    ap.add_argument("-o", "--output", default=None, help="output image file")
+    ap.add_argument("-D", action="append", default=[], metavar="key=value",
+                    help="define a scene parameter ($key substitution)")
+    ap.add_argument("-s", "--spp", type=int, default=None, help="override spp")
+    ap.add_argument("-d", "--depth", type=int, default=None, help="override maxDepth")
+    ap.add_argument("-t", "--seed", type=int, default=0, help="RNG seed")
+    ap.add_argument("-a", action="append", default=[], metavar="path",
+                    dest="search_paths",
+                    help="prepend a file-resolver search path "
+                         "(repeatable; mitsuba -a parity)")
+    ap.add_argument("--integrator", default=None,
+                    help="override integrator (path/direct/volpath)")
+    ap.add_argument("--mesh", default=None, metavar="DP,SP",
+                    help="multi-device rendering: not ported yet (ROADMAP A13)")
+    ap.add_argument("--distributed", default=None, metavar="HOST:PORT,N,I",
+                    help="multi-host rendering: not ported yet (ROADMAP A13)")
+    ap.add_argument("-j", "--jobs", type=int, default=1,
+                    help="render multiple scenes concurrently (mitsuba.cpp -j): "
+                         "a thread pool overlaps one scene's loading with "
+                         "another's rendering")
+    ap.add_argument("--time-bins", type=int, default=1, metavar="K",
+                    help="object motion blur: render K stratified shutter"
+                         " times (animated toWorldEnd / deformable shapes)"
+                         " and average")
+    ap.add_argument("-q", "--quiet", action="store_true")
+    ap.add_argument("-v", "--verbose", action="store_true",
+                    help="EDebug log level (mitsuba.cpp -v)")
+    ap.add_argument("--log-file", default=None, metavar="PATH",
+                    help="also append log records to a file "
+                         "(StreamAppender/logger.h analog)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="render on the CPU (the default is the CUDA device)")
+    ap.add_argument("-r", "--refresh", type=float, default=None, metavar="SEC",
+                    help="render in progressive passes and write the partial "
+                         "image every SEC seconds (0: after every pass; "
+                         "mitsuba.cpp:107-127 -r flush thread; SIGHUP also "
+                         "forces a flush)")
+    ap.add_argument("--debug-fp", action="store_true",
+                    help="check the image, each progressive pass and each "
+                         "tiled-film band with "
+                         "torch.isfinite and exit non-zero naming the first "
+                         "NaN/Inf pixel (a check of the result, not JAX's "
+                         "per-op trap)")
+    return ap
+
+
+def resolve_integrator(name: str):
+    """The port's Li function for an integrator name; exits naming ROADMAP
+    A12 for every integrator not ported yet."""
+    if name not in _LI_NAMES:
+        raise SystemExit(
+            f"integrator '{name}' is not ported yet (ROADMAP A12); "
+            f"have: {sorted(_LI_NAMES)}")
+    import importlib
+
+    return importlib.import_module(f".integrators.{_LI_NAMES[name]}", __package__).li
+
+
+def _device(args):
+    import torch
+
+    if args.cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --cpu to render on the CPU")
+    return torch.device("cuda", 0)
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    if args.mesh or args.distributed:
+        raise SystemExit("--mesh and --distributed are not ported yet "
+                         "(ROADMAP A13: torch.distributed rendering)")
+    from .core import logger as loglib
+
+    logger = loglib.get_logger()
+    level = logger.level
+    if args.quiet:
+        logger.set_log_level(loglib.EWarn)
+    elif args.verbose:
+        logger.set_log_level(loglib.EDebug)
+    appender = loglib.FileAppender(args.log_file) if args.log_file else None
+    if appender is not None:
+        logger.add_appender(appender)
+    try:
+        if len(args.scene) > 1:
+            # multi-scene batch (mitsuba.cpp -j): a thread pool overlaps the
+            # host-side scene loading and dispatch
+            import concurrent.futures as cf
+
+            def one(scene_path):
+                a = copy.copy(args)
+                a.scene = [scene_path]
+                if args.output:
+                    a.output = multi_output(args.output, scene_path)
+                return _render_one(a)
+
+            with cf.ThreadPoolExecutor(max_workers=max(args.jobs, 1)) as ex:
+                list(ex.map(one, args.scene))
+            return 0
+        return _render_one(args)
+    finally:
+        logger.set_log_level(level)
+        if appender is not None:
+            logger.appenders.remove(appender)
+            appender.close()
+
+
+def multi_output(output: str, scene_path: str) -> str:
+    """-o out.exr with several scenes: out_<scene stem>.exr per scene."""
+    base, ext = output.rsplit(".", 1)
+    stem = scene_path.rsplit("/", 1)[-1].rsplit(".", 1)[0]
+    return f"{base}_{stem}.{ext}"
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _check_finite(img, what: str, y0: int = 0) -> None:
+    """--debug-fp: exit naming the first pixel (row-major) with a NaN/Inf;
+    `img` holds the film's rows from y0 on."""
+    import torch
+
+    img = torch.as_tensor(img)
+    bad = ~torch.isfinite(img).reshape(img.shape[0], img.shape[1], -1).all(-1)
+    if bad.any():
+        y, x = torch.nonzero(bad)[0].tolist()
+        raise SystemExit(f"--debug-fp: {what} has a non-finite value at pixel "
+                         f"(row {y0 + y}, column {x})")
+
+
+def _load(scene_path, defaults, args, dev, time_=0.0):
+    """load_xml, then the automatic BVH above trace.BRUTE_MAX_TRIS.
+    Returns (scene, cam, cfg, integrator name, load seconds, BVH seconds)."""
+    from .ops import trace
+    from .scene import bvh as bvhlib, xml as xmllib
+
+    t0 = time.perf_counter()
+    scene, cam, cfg, integ_name = xmllib.load_xml(
+        scene_path, defaults=defaults, time=time_, search_paths=args.search_paths,
+        device=dev)
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+    bvh_s = 0.0
+    # large scenes get a BVH automatically (kd-tree build analog,
+    # scene.cpp:340 Scene::initialize), at the JAX CLI's threshold
+    if scene.num_triangles > trace.BRUTE_MAX_TRIS and scene.bvh is None:
+        t0 = time.perf_counter()
+        scene = bvhlib.attach(scene)
+        _sync(dev)
+        bvh_s = time.perf_counter() - t0
+    return scene, cam, cfg, integ_name, load_s, bvh_s
+
+
+def _render_one(args):
+    t0 = time.time()
+    dev = _device(args)
+
+    defaults = {}
+    for d in args.D:
+        if "=" not in d:
+            raise SystemExit(f"bad -D argument '{d}', expected key=value")
+        k, v = d.split("=", 1)
+        defaults[k] = v
+
+    scene_path = args.scene[0] if isinstance(args.scene, list) else args.scene
+    if not os.path.exists(scene_path):
+        raise SystemExit(f"scene file not found: {scene_path}")
+    scene, cam, cfg, integ_name, load_s, bvh_s = _load(scene_path, defaults, args, dev)
+    if args.spp:
+        cfg = dataclasses.replace(cfg, spp=args.spp)
+    if args.depth:
+        cfg = dataclasses.replace(cfg, max_depth=args.depth)
+    if args.seed:
+        cfg = dataclasses.replace(cfg, seed=args.seed)
+    li_fn = resolve_integrator(args.integrator or integ_name)
+
+    from .core import logger as loglib
+    from .integrators import common
+    from .io import image as imagelib
+    from .utils import stats as statslib
+
+    loglib.Log(loglib.EInfo,
+               "%d triangles, %dx%d @ %d spp, integrator=%s",
+               scene.num_triangles, cam.width, cam.height, cfg.spp,
+               args.integrator or integ_name)
+    st = statslib.get_statistics()
+    st.add("Scene.triangles", scene.num_triangles)
+    st.add("Scene.pixels", cam.width * cam.height)
+    out = args.output or (scene_path.rsplit(".", 1)[0] + ".exr")
+
+    t_render, bin_loads = time.perf_counter(), 0.0
+    if args.time_bins > 1:
+        # time-binned object motion blur (deformable.cpp / track.h
+        # analog): each bin re-loads the scene at a stratified shutter time
+        img = None
+        for b in range(args.time_bins):
+            scene_b, cam_b, _, _, lb, bb = _load(scene_path, defaults, args, dev,
+                                                 time_=(b + 0.5) / args.time_bins)
+            load_s, bvh_s, bin_loads = load_s + lb, bvh_s + bb, bin_loads + lb + bb
+            cfg_b = dataclasses.replace(cfg, seed=cfg.seed + b * 7919)
+            img_b = common.render(scene_b, cam_b, li_fn, cfg_b).cpu().numpy()
+            img = img_b if img is None else img + img_b
+        img = img / args.time_bins
+    elif cfg.film_tiled:
+        # tiledhdrfilm: row bands streamed straight to the EXR
+        from .film import tiled as tiledlib
+
+        if not out.endswith(".exr"):
+            raise SystemExit("tiledhdrfilm requires an .exr output")
+        mean = tiledlib.render_tiled(
+            scene, cam, li_fn, cfg, out,
+            metadata={"spp": float(cfg.spp), "generatedBy": "mitsuba_tpu_torch"},
+            progress=not args.quiet,
+            check=(lambda band, y0: _check_finite(band, "the image", y0)) if args.debug_fp
+            else None)
+        _record_times(st, load_s, bvh_s, time.perf_counter() - t_render)
+        render_s = time.time() - t0
+        st.add("Render.wall_clock", render_s, unit="s")
+        loglib.Log(loglib.EInfo, "wrote %s in %.1fs (mean %.4f, tiled)",
+                   out, render_s, mean)
+        if not args.quiet:
+            st.print_stats()
+        return 0
+    elif args.refresh is not None:
+        img = _render_progressive(args, scene, cam, li_fn, cfg, out)
+    else:
+        img = common.render(scene, cam, li_fn, cfg).cpu().numpy()
+    _record_times(st, load_s, bvh_s, time.perf_counter() - t_render - bin_loads)
+    if args.debug_fp:
+        _check_finite(img, "the image")
+
+    render_s = time.time() - t0
+    # renderTime in the EXR header (film metadata the reference stamps;
+    # read back by data/scripts/rendertime.py:14)
+    meta = {"renderTime": render_s,
+            "spp": float(cfg.spp),
+            "generatedBy": "mitsuba_tpu_torch"} if out.endswith(".exr") else None
+    imagelib.write_image(out, img, metadata=meta)
+    st.add("Render.wall_clock", render_s, unit="s")
+    st.add("Render.samples", float(cfg.spp) * cam.width * cam.height)
+    loglib.Log(loglib.EInfo, "wrote %s in %.1fs (mean %.4f)",
+               out, render_s, img.mean())
+    if not args.quiet:
+        # Statistics::printStats at exit (mitsuba.cpp:408)
+        st.print_stats()
+    return 0
+
+
+def _record_times(st, load_s, bvh_s, render_s):
+    """The run's phases as gauges: Time.load (parse, mesh reads, scene
+    build), Time.bvh (the automatic BVH), Time.render (the render and its
+    copy to the host; the tiled film's band writes included), each ending
+    in a device synchronise."""
+    st.record("Time.load", load_s, unit="s")
+    st.record("Time.bvh", bvh_s, unit="s")
+    st.record("Time.render", render_s, unit="s")
+
+
+def _render_progressive(args, scene, cam, li_fn, cfg, out):
+    """Progressive passes with a periodic / SIGHUP partial-image flush
+    (mitsuba.cpp:91-127: SIGHUP handler + `-r sec` flush thread)."""
+    import signal
+
+    from .core import logger as loglib
+    from .io import image as imagelib
+    from .utils import checkpoint as ckpt
+
+    flush_req = {"at": time.time(), "force": False}
+
+    def _on_hup(signum, frame):
+        flush_req["force"] = True
+
+    try:
+        signal.signal(signal.SIGHUP, _on_hup)
+    except (ValueError, AttributeError):
+        pass  # non-main thread / platform without SIGHUP
+
+    def on_pass(state):
+        if args.debug_fp:
+            _check_finite(state.image, f"the pass ending at {state.spp_done} spp")
+        now = time.time()
+        if flush_req["force"] or now - flush_req["at"] >= args.refresh:
+            imagelib.write_image(out, state.image)
+            loglib.Log(loglib.EInfo, "flushed partial film (%d/%d spp)",
+                       state.spp_done, cfg.spp)
+            flush_req["at"] = now
+            flush_req["force"] = False
+
+    pass_spp = max(min(cfg.spp // 8, 64), 1)
+    state = ckpt.render_progressive(
+        scene, cam, li_fn, cfg, total_spp=cfg.spp, pass_spp=pass_spp,
+        on_pass=on_pass, progress=not args.quiet)
+    return state.image
+
+
+if __name__ == "__main__":
+    sys.exit(main())

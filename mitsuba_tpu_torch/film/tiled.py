@@ -17,12 +17,7 @@ import sys
 
 import numpy as np
 
-_EXR_MAGIC = 20000630
-
-
-def _exr_attr(name: bytes, typ: bytes, data: bytes) -> bytes:
-    """One EXR header attribute (a copy of io/image.py's)."""
-    return name + b"\x00" + typ + b"\x00" + struct.pack("<i", len(data)) + data
+from ..io.image import exr_preamble
 
 
 class TiledEXRWriter:
@@ -31,26 +26,7 @@ class TiledEXRWriter:
 
     def __init__(self, path, width: int, height: int, metadata: dict | None = None):
         self.w, self.h = width, height
-        chans = b""
-        for c in (b"B", b"G", b"R"):
-            chans += c + b"\x00" + struct.pack("<iiii", 2, 0, 1, 1)
-        chans += b"\x00"
-        header = _exr_attr(b"channels", b"chlist", chans)
-        for k, v in (metadata or {}).items():
-            if isinstance(v, (int, float)):
-                header += _exr_attr(k.encode(), b"float", struct.pack("<f", float(v)))
-            else:
-                header += _exr_attr(k.encode(), b"string", str(v).encode())
-        header += _exr_attr(b"compression", b"compression", b"\x00")
-        box = struct.pack("<iiii", 0, 0, width - 1, height - 1)
-        header += _exr_attr(b"dataWindow", b"box2i", box)
-        header += _exr_attr(b"displayWindow", b"box2i", box)
-        header += _exr_attr(b"lineOrder", b"lineOrder", b"\x00")
-        header += _exr_attr(b"pixelAspectRatio", b"float", struct.pack("<f", 1.0))
-        header += _exr_attr(b"screenWindowCenter", b"v2f", struct.pack("<ff", 0, 0))
-        header += _exr_attr(b"screenWindowWidth", b"float", struct.pack("<f", 1.0))
-        header += b"\x00"
-        preamble = struct.pack("<ii", _EXR_MAGIC, 2) + header
+        preamble = exr_preamble(width, height, metadata=metadata)
         self._data_start = len(preamble) + 8 * height
         self._line_bytes = 8 + width * 4 * 3
         offsets = struct.pack("<" + "Q" * height,
@@ -82,10 +58,12 @@ class TiledEXRWriter:
 
 
 def render_tiled(scene, cam, li_fn, cfg, path, tile_rows: int = 64,
-                 metadata: dict | None = None, progress: bool = False) -> float:
+                 metadata: dict | None = None, progress: bool = False,
+                 check=None) -> float:
     """Render the film in bands of at most tile_rows rows (the largest
     divisor of the height up to it), streaming each into the EXR at `path`.
-    Returns the mean radiance."""
+    `check(band, y0)`, if given, sees each (rows, W, 3) band and its first
+    row before the band is written. Returns the mean radiance."""
     from ..integrators import common
     from . import film as filmlib
 
@@ -101,6 +79,8 @@ def render_tiled(scene, cam, li_fn, cfg, path, tile_rows: int = 64,
     try:
         for y0 in range(0, h, bh):
             img = common.render(scene, cam, li_fn, cfg, y0=y0, rows=bh).cpu().numpy()
+            if check is not None:
+                check(img, y0)
             writer.write_rows(y0, img)
             total += float(img.sum(dtype=np.float64))
             if progress:

@@ -22,7 +22,10 @@ from ..film import film as filmlib
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render settings: the JAX package's RenderConfig fields that
-    the ported integrators read, with the same defaults."""
+    the ported integrators and the scene loader set, with the same
+    defaults. `cauchy_b` (a dispersive dielectric's `cauchyB`, read by the
+    spectral integrator, ROADMAP A12) is carried so that a loaded or
+    converted config keeps it; no integrator of the port reads it."""
 
     spp: int = 16
     max_depth: int = 8          # path edges (Mitsuba's maxDepth)
@@ -34,6 +37,8 @@ class RenderConfig:
     sampler: int = 0            # samplers/qmc.py SAMPLER_* family
     mis_mode: int = 0           # 0=power, 1=balance, 2=uniform
     hide_emitters: bool = False
+    film_tiled: bool = False    # tiledhdrfilm: row bands streamed to disk
+    cauchy_b: float = 0.0       # dispersive dielectrics' Cauchy B (um^2)
 
     def resolve_chunk(self, width: int, height: int) -> int:
         if self.spp_chunk > 0:
@@ -47,6 +52,21 @@ class RenderConfig:
 
 # An integrator Li is: (scene, cam, o, d, stream, cfg) -> (N,3) radiance.
 LiFn = Callable
+
+
+def config_from_jax(jcfg) -> RenderConfig:
+    """Carry a JAX package RenderConfig across: every field the port has is
+    copied; a field it lacks raises unless it holds the JAX default."""
+    ours = {f.name for f in dataclasses.fields(RenderConfig)}
+    kw = {}
+    for f in dataclasses.fields(jcfg):
+        value = getattr(jcfg, f.name)
+        if f.name in ours:
+            kw[f.name] = value
+        elif value != f.default:
+            raise NotImplementedError(
+                f"config_from_jax: RenderConfig.{f.name}={value!r} is not ported")
+    return RenderConfig(**kw)
 
 
 def render(scene, cam, li_fn: LiFn, cfg: RenderConfig, sample_offset: int = 0,

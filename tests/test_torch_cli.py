@@ -1,0 +1,305 @@
+"""The port's command line (mitsuba_tpu_torch/cli.py) on the CPU: against
+the JAX package's `cli.main` on the same scene file (the EXR pixels at the
+goldens' 1e-4; the statistics and the log lines alike), then the port's
+own branches, each against an in-process render of the same loaded scene:
+the -s/-d/-t/-D overrides, --integrator, --time-bins, -r progressive,
+the tiled film, -j over several scenes, checkpoint resume, --debug-fp, the
+exits naming ROADMAP A12 and A13, and the exit without a GPU and --cpu."""
+import contextlib
+import dataclasses
+import functools
+import io
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mitsuba_tpu_torch import cli
+from mitsuba_tpu_torch.core import logger as loglib
+from mitsuba_tpu_torch.integrators import common, direct, path, volpath
+from mitsuba_tpu_torch.io import image
+from mitsuba_tpu_torch.scene import xml
+from mitsuba_tpu_torch.utils import checkpoint, stats
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+RENDER_TOL = 1e-4
+# film/tiled.py against the full frame (C32)
+TILED_RTOL, TILED_ATOL = 1e-5, 1e-6
+
+SCENE = """\
+<scene version="0.6.0">
+    <default name="res" value="8"/>
+    <default name="refl" value="0.6, 0.5, 0.4"/>
+    <integrator type="{integrator}"><integer name="maxDepth" value="3"/></integrator>
+    <sensor type="perspective">
+        <float name="fov" value="39.3077"/>
+        <transform name="toWorld">
+            <lookat origin="0.5,0.5,-1.3" target="0.5,0.5,0.5" up="0,1,0"/>
+        </transform>
+        <sampler type="independent"><integer name="sampleCount" value="8"/></sampler>
+        <film type="{film}">
+            <integer name="width" value="$res"/><integer name="height" value="$res"/>
+        </film>
+    </sensor>
+    <shape type="rectangle">
+        <transform name="toWorld"><rotate x="1" angle="-90"/><translate x="0.5" z="0.5"/></transform>
+        <bsdf type="diffuse"><rgb name="reflectance" value="$refl"/></bsdf>
+    </shape>
+    <shape type="cube">
+        <transform name="toWorld"><scale value="0.15"/><translate x="0.4" y="0.15" z="0.5"/>
+            </transform>
+        <transform name="toWorldEnd"><scale value="0.15"/><translate x="0.6" y="0.15" z="0.5"/>
+            </transform>
+    </shape>
+    <shape type="rectangle">
+        <transform name="toWorld"><rotate x="1" angle="90"/><translate x="0.5" y="1.5" z="0.5"/></transform>
+        <emitter type="area"><rgb name="radiance" value="8,8,8"/></emitter>
+    </shape>
+    {extra}
+</scene>
+"""
+
+
+def write_scene(d, name="s.xml", integrator="path", film="hdrfilm", extra=""):
+    p = Path(d) / name
+    p.write_text(SCENE.format(integrator=integrator, film=film, extra=extra))
+    return p
+
+
+def run(*argv):
+    """cli.main on the CPU; returns its exit code."""
+    return cli.main([str(a) for a in argv] + ["--cpu"])
+
+
+def render_loaded(p, li=path.li, defaults=None, time=0.0, **cfg_changes):
+    scene, cam, cfg, _ = xml.load_xml(p, defaults=defaults, time=time, device="cpu")
+    return common.render(scene, cam, li, dataclasses.replace(cfg, **cfg_changes)).numpy()
+
+
+@contextlib.contextmanager
+def captured(logger):
+    """The logger's records as bare messages (no time, no package tag) and
+    stderr (where the statistics go), as (log, err) StringIOs."""
+    log, err = io.StringIO(), io.StringIO()
+    app = loglib.StreamAppender(log)
+    fmt = logger.formatter
+    logger.add_appender(app)
+    logger.formatter = lambda level, msg: msg
+    try:
+        with contextlib.redirect_stderr(err):
+            yield log, err
+    finally:
+        logger.formatter = fmt
+        logger.appenders.remove(app)
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """The JAX package's CLI on the scene once (jitted once): its image,
+    log lines and statistics."""
+    from mitsuba_tpu import cli as jcli
+    from mitsuba_tpu.core import logger as jlog
+    from mitsuba_tpu.utils import stats as jstats
+
+    d = tmp_path_factory.mktemp("jax_cli")
+    p = write_scene(d)
+    jstats.get_statistics().reset()
+    with captured(jlog.get_logger()) as (log, err):
+        jcli.main([str(p), "-o", str(d / "o.exr"), "--cpu"])
+    return image.read_exr(d / "o.exr"), log.getvalue(), err.getvalue(), p
+
+
+def test_cli_matches_jax_cli(tmp_path, jax_run):
+    ref, _, _, p = jax_run
+    assert run(p, "-o", tmp_path / "o.exr", "-q") == 0
+    img = image.read_exr(tmp_path / "o.exr")
+    assert img.shape == ref.shape == (8, 8, 3)
+    np.testing.assert_allclose(img, ref, rtol=RENDER_TOL, atol=RENDER_TOL)
+    attrs = image.read_exr_attrs(tmp_path / "o.exr")
+    assert attrs["spp"] == 8.0 and attrs["generatedBy"] == "mitsuba_tpu_torch"
+    assert attrs["renderTime"] > 0
+
+
+def _mask(text, out=None):
+    """Log/statistics text with the output path and every number masked."""
+    if out is not None:
+        text = text.replace(str(out), "<out>")
+    return re.sub(r"\d+(\.\d+)?[KMGT]?", "#", text).splitlines()
+
+
+def test_log_and_statistics_like_jax(tmp_path, jax_run):
+    """The same log lines and the JAX package's statistics, numbers
+    masked; the port adds its Time group (load, bvh, render)."""
+    _, jlog, jerr, p = jax_run
+    stats.get_statistics().reset()
+    with captured(loglib.get_logger()) as (log, err):
+        assert run(p, "-o", tmp_path / "o.exr") == 0
+    assert _mask(log.getvalue(), tmp_path / "o.exr") == \
+        _mask(jlog, Path(p).parent / "o.exr")
+    mine, ref = err.getvalue(), jerr
+    time_group = "  * Time:\n      load: # s\n      bvh: # s\n      render: # s\n"
+    masked = "\n".join(_mask(mine)) + "\n"
+    assert time_group in masked
+    assert masked.replace(time_group, "") == "\n".join(_mask(ref)) + "\n"
+    st = stats.get_statistics()
+    assert st.counter("Scene.triangles").value == 16
+    assert st.counter("Time.render").value > 0 and st.counter("Time.bvh").value == 0
+
+
+def test_overrides(tmp_path):
+    """-s, -d, -t and -D: the image equals an in-process render of the
+    scene loaded with the same defaults and config."""
+    p = write_scene(tmp_path)
+    assert run(p, "-o", tmp_path / "o.exr", "-q", "-s", "4", "-d", "2", "-t", "5",
+               "-D", "res=6", "-D", "refl=0.2,0.9,0.3") == 0
+    want = render_loaded(p, defaults={"res": "6", "refl": "0.2,0.9,0.3"}, spp=4,
+                         max_depth=2, seed=5)
+    assert want.shape == (6, 6, 3)
+    np.testing.assert_array_equal(image.read_exr(tmp_path / "o.exr"), want)
+
+
+@pytest.mark.parametrize("name,li", [("direct", direct.li), ("volpath", volpath.li)])
+def test_integrator_override(tmp_path, name, li):
+    extra = ('<medium type="homogeneous"><rgb name="sigmaS" value="0.3, 0.3, 0.3"/>'
+             '<rgb name="sigmaA" value="0.05, 0.05, 0.05"/></medium>'
+             if name == "volpath" else "")
+    p = write_scene(tmp_path, extra=extra)
+    assert run(p, "-o", tmp_path / "o.exr", "-q", "--integrator", name) == 0
+    np.testing.assert_array_equal(image.read_exr(tmp_path / "o.exr"), render_loaded(p, li))
+
+
+def test_time_bins(tmp_path):
+    """--time-bins 2: the mean of the loads at shutter times 1/4 and 3/4,
+    each with its own seed (the moving cube)."""
+    p = write_scene(tmp_path)
+    assert run(p, "-o", tmp_path / "o.exr", "-q", "--time-bins", "2") == 0
+    want = (render_loaded(p, time=0.25) + render_loaded(p, time=0.75, seed=7919)) / 2
+    np.testing.assert_allclose(image.read_exr(tmp_path / "o.exr"), want, rtol=1e-6, atol=1e-7)
+    assert not np.array_equal(render_loaded(p, time=0.25), render_loaded(p, time=0.75))
+
+
+def test_progressive_equals_one_shot(tmp_path):
+    """-r 0: passes of spp // 8 samples, the partial film written after
+    each; the final image equals the one-shot render (the passes' sums run
+    in another order)."""
+    p = write_scene(tmp_path)
+    assert run(p, "-o", tmp_path / "o.exr", "-q", "-r", "0", "--debug-fp") == 0
+    np.testing.assert_allclose(image.read_exr(tmp_path / "o.exr"), render_loaded(p),
+                               rtol=1e-6, atol=1e-6)
+    assert "renderTime" in image.read_exr_attrs(tmp_path / "o.exr")
+
+
+def test_tiled_film_equals_full_frame(tmp_path):
+    p = write_scene(tmp_path, film="tiledhdrfilm")
+    assert run(p, "-o", tmp_path / "o.exr", "-q") == 0
+    full = render_loaded(write_scene(tmp_path, "full.xml"))
+    np.testing.assert_allclose(image.read_exr(tmp_path / "o.exr"), full,
+                               rtol=TILED_RTOL, atol=TILED_ATOL)
+    assert image.read_exr_attrs(tmp_path / "o.exr")["generatedBy"] == "mitsuba_tpu_torch"
+
+
+def test_jobs_output_names(tmp_path):
+    """-j 2 over two scenes: -o out.exr becomes out_<scene stem>.exr."""
+    a = write_scene(tmp_path, "alpha.xml")
+    b = write_scene(tmp_path, "beta.xml", integrator="direct")
+    assert run(a, b, "-j", "2", "-o", tmp_path / "out.exr", "-q") == 0
+    np.testing.assert_array_equal(image.read_exr(tmp_path / "out_alpha.exr"), render_loaded(a))
+    np.testing.assert_array_equal(image.read_exr(tmp_path / "out_beta.exr"),
+                                  render_loaded(b, direct.li))
+    assert cli.multi_output("x/out.png", "dir/s.v2.xml") == "x/out_s.v2.png"
+
+
+def test_checkpoint_resume(tmp_path):
+    """render_progressive interrupted after 4 of 8 spp and resumed from its
+    .npz equals the uninterrupted progressive render; a changed config
+    restarts."""
+    scene, cam, cfg, _ = xml.load_xml(write_scene(tmp_path), device="cpu")
+    ck = tmp_path / "ck.npz"
+    whole = checkpoint.render_progressive(scene, cam, path.li, cfg, 8, pass_spp=2)
+    checkpoint.render_progressive(scene, cam, path.li, cfg, 4, pass_spp=2, checkpoint_path=ck,
+                                  timelog_path=tmp_path / "t.txt")
+    state = checkpoint.render_progressive(scene, cam, path.li, cfg, 8, pass_spp=2,
+                                          checkpoint_path=ck)
+    assert state.spp_done == 8
+    np.testing.assert_array_equal(state.image, whole.image)
+    np.testing.assert_allclose(state.image, render_loaded(tmp_path / "s.xml"), atol=1e-6)
+    assert len((tmp_path / "t.txt").read_text().split()) == 2
+    other = dataclasses.replace(cfg, max_depth=2)
+    st = checkpoint.render_progressive(scene, cam, path.li, other, 2, pass_spp=2,
+                                       checkpoint_path=ck)
+    assert st.cfg_key == checkpoint.cfg_key(other, cam) and st.spp_done == 2
+
+
+def test_debug_fp_names_first_bad_pixel(tmp_path, monkeypatch):
+    """The full frame, each progressive pass, and each band of the tiled
+    film (2-row bands here, so the bad pixel lies in the second band)."""
+    from mitsuba_tpu_torch.film import tiled
+
+    p = write_scene(tmp_path)
+    real = common.render
+
+    def poisoned(*a, y0=0, rows=None, **kw):
+        img = real(*a, y0=y0, rows=rows, **kw)
+        for y, x, c, v in ((3, 5, 1, float("nan")), (6, 0, 0, float("inf"))):
+            if y0 <= y < y0 + img.shape[0]:
+                img[y - y0, x, c] = v
+        return img
+
+    monkeypatch.setattr(common, "render", poisoned)
+    with pytest.raises(SystemExit, match=r"row 3, column 5"):
+        run(p, "-o", tmp_path / "o.exr", "-q", "--debug-fp")
+    with pytest.raises(SystemExit, match=r"pass ending at 1 spp .*row 3, column 5"):
+        run(p, "-o", tmp_path / "o.exr", "-q", "--debug-fp", "-r", "0")
+    monkeypatch.setattr(tiled, "render_tiled",
+                        functools.partial(tiled.render_tiled, tile_rows=2))
+    tp = write_scene(tmp_path, "t.xml", film="tiledhdrfilm")
+    with pytest.raises(SystemExit, match=r"--debug-fp: the image .*row 3, column 5"):
+        run(tp, "-o", tmp_path / "t.exr", "-q", "--debug-fp")
+    assert run(tp, "-o", tmp_path / "t.exr", "-q") == 0   # unchecked: written
+    assert run(p, "-o", tmp_path / "o.exr", "-q") == 0
+
+
+@pytest.mark.parametrize("argv,roadmap", [
+    (["--integrator", "bdpt"], "A12"), (["--integrator", "ptracer"], "A12"),
+    (["--integrator", "spectral"], "A12"), (["--mesh", "2,1"], "A13"),
+    (["--distributed", "localhost:1234,2,0"], "A13")])
+def test_unported_options_exit(tmp_path, argv, roadmap):
+    p = write_scene(tmp_path)
+    with pytest.raises(SystemExit, match=roadmap):
+        run(p, "-o", tmp_path / "o.exr", "-q", *argv)
+    assert not (tmp_path / "o.exr").exists()
+
+
+def test_no_gpu_without_cpu_flag_exits(tmp_path, monkeypatch):
+    """The CLI renders on the card by default: without one, and without
+    --cpu, it exits naming --cpu (no silent CPU run)."""
+    p = write_scene(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--cpu"):
+        cli.main([str(p), "-o", str(tmp_path / "o.exr"), "-q"])
+    assert not (tmp_path / "o.exr").exists()
+    with pytest.raises(SystemExit, match="scene file not found"):
+        run(tmp_path / "none.xml", "-q")
+
+
+def test_python_dash_m(tmp_path):
+    """`python -m mitsuba_tpu_torch scene.xml -o out.exr --cpu` renders the
+    in-process image; without --cpu (this CPU build of torch has no card)
+    it exits non-zero naming --cpu."""
+    p = write_scene(tmp_path)
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    cmd = [sys.executable, "-m", "mitsuba_tpu_torch", str(p), "-o", str(tmp_path / "o.exr")]
+    res = subprocess.run(cmd + ["--cpu"], capture_output=True, text=True, env=env)
+    assert res.returncode == 0, res.stderr
+    assert "wrote" in res.stderr and "Statistics:" in res.stderr
+    np.testing.assert_array_equal(image.read_exr(tmp_path / "o.exr"), render_loaded(p))
+    if not torch.cuda.is_available():
+        res = subprocess.run(cmd, capture_output=True, text=True, env=env)
+        assert res.returncode != 0 and "--cpu" in res.stderr

@@ -2,6 +2,7 @@
 against the JAX package's golden image, the regenerative wavefront against
 the JAX wavefront, and the port's own invariants (these mirror
 tests/test_wavefront.py)."""
+import ast
 import pathlib
 import re
 
@@ -180,16 +181,64 @@ def test_bvh_render_matches_brute():
     assert img.mean() > 0.05
 
 
+_LOADERS = {"import_module", "__import__", "spec_from_file_location", "SourceFileLoader",
+            "run_path", "run_module", "load_source", "exec_module"}
+_JAX_PACKAGE = re.compile(r"(^|[^\w])(jax|flax|mitsuba_tpu)(?!\w)")
+
+
+def _loads_jax_package(tree) -> list:
+    """Calls of importlib, runpy or __import__ (by any of their loader
+    functions) with an argument that names jax, flax or the JAX package
+    (a string, a path part or an f-string piece)."""
+    bad = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        fn = node.func
+        name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", "")
+        if name not in _LOADERS:
+            continue
+        for arg in list(node.args) + [k.value for k in node.keywords]:
+            for sub in ast.walk(arg):
+                if isinstance(sub, ast.Constant) and isinstance(sub.value, str) \
+                        and _JAX_PACKAGE.search(sub.value.replace("/", " ")):
+                    bad.append((node.lineno, sub.value))
+    return bad
+
+
 def test_port_imports_no_jax():
-    """The port runs where JAX is absent: no module of it imports jax."""
+    """The port runs where JAX is absent: no module of it, and not
+    chip_smoke.py, imports jax, flax or the JAX package, and none loads a
+    module of them through importlib, runpy or __import__."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|mitsuba_tpu)(?![\w])", re.M)
     files = sorted((ROOT / "mitsuba_tpu_torch").rglob("*.py"))
     assert len(files) > 15
     names = {f.relative_to(ROOT / "mitsuba_tpu_torch").as_posix() for f in files}
     assert {"models/medium.py", "models/phase.py", "integrators/volpath.py",
-            "samplers/qmc.py", "samplers/sobol.py", "film/film.py", "film/tiled.py"} <= names
+            "samplers/qmc.py", "samplers/sobol.py", "film/film.py", "film/tiled.py",
+            "core/logger.py", "core/spectrum.py", "utils/stats.py", "utils/checkpoint.py",
+            "io/exr_piz.py", "io/image.py", "io/mesh.py", "io/serialized.py", "io/hair.py",
+            "io/vol.py", "scene/shapes.py", "scene/upgrade.py", "scene/voxelize.py",
+            "scene/xml.py", "cli.py", "__main__.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
-        assert not pat.search(f.read_text()), f
+        text = f.read_text()
+        assert not pat.search(text), f
+        assert not _loads_jax_package(ast.parse(text)), (f, _loads_jax_package(ast.parse(text)))
+
+
+def test_import_guard_sees_loaders():
+    """The guard's own cases: each way of loading the JAX package is seen,
+    the port's own relative import_module is not."""
+    for src in ('importlib.import_module("mitsuba_tpu.io.image")',
+                '__import__("jax")',
+                'importlib.util.spec_from_file_location("m", ROOT / "mitsuba_tpu" / "cli.py")',
+                'runpy.run_path(f"{ROOT}/mitsuba_tpu/scene/xml.py")',
+                'runpy.run_module("mitsuba_tpu.cli")'):
+        assert _loads_jax_package(ast.parse(src)), src
+    for src in ('importlib.import_module(f".integrators.{name}", __package__)',
+                'importlib.import_module("mitsuba_tpu_torch.cli")',
+                'np.load(ROOT / "mitsuba_tpu" / "samplers" / "data.npz")'):
+        assert not _loads_jax_package(ast.parse(src)), src
 
 
 # --------------------------------------------------------------------------
