@@ -54,9 +54,21 @@ tiled film (`-D film=tiledhdrfilm`); each by the real command as a
 subprocess and by cli.main in process with its launches counted and twin
 checked, the loaded arrays equal to the fixture's, the images equal to the
 in-process renders of the builtin scenes.
+Then the bidirectional family (the [bidir] group, BIDIR_PHASES): bdpt.li
+and bdpt.render (the light image) on the Cornell box at 256x256 x 16 spp,
+depth 8, and the light image on caustic_box; lvcbpt.li in its three MIS
+modes and on a point light; ptracer.render (1,048,576 particles); vpl.li;
+path.li and lvcbpt.li with the occupancy map's shadows, and the march
+against B1's any-hit at 2^19 lanes; the depth, normal, ao and motion
+AOVs and multichannel.render; bdpt and lvcbpt on the 10,372-triangle mesh
+through B2; the CLI's lvcbpt and ptracer on [cli_cornell]'s scene files.
+Each mean is held to its JAX test's bar against path.li's render of the
+same scene, each cell counts its kernel's launches from zero and reruns
+one launch per entry and batch size through the twin.
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The line [total] gives the whole script's seconds and those of
-the materials, the media, the front-end and the CLI phases.
+the materials, the media, the front-end, the CLI and the bidirectional
+phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -699,17 +711,9 @@ def device_times(prof, labels=()):
 
 
 def phase_profile(name, scene, cam, cfg, li=None, scopes=None, **render_kw):
-    """Device busy share of one render (torch.profiler, CUDA kernel time /
-    wall time of the same render without the profiler): the wavefront's,
-    or common.render's with the integrator `li`. gather_share: the device
-    time of torch's indexing and gather kernels over all kernels'. scopes
-    {name: (module, function name)}: during the profiled render each
-    function runs inside a profiler range of that name, and the device
-    time of its kernels is printed as a share of all (device_times).
-    Returns {name: share}."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
+    """Device busy share of one render (profile_call): the wavefront's, or
+    common.render's with the integrator `li`. Returns profile_call's
+    scope shares."""
     from mitsuba_tpu_torch.integrators import common, wavefront
 
     def render():
@@ -717,20 +721,34 @@ def phase_profile(name, scene, cam, cfg, li=None, scopes=None, **render_kw):
             return wavefront.render(scene, cam, cfg, **render_kw)
         return common.render(scene, cam, li, cfg)
 
+    return profile_call(name, render, scene.device, scopes,
+                        resolution=f"{cam.width}x{cam.height}", spp=cfg.spp)
+
+
+def profile_call(name, render, dev, scopes=None, **fields):
+    """Device busy share of one call of render() (torch.profiler, CUDA
+    kernel time / wall time of the same call without the profiler).
+    gather_share: the device time of torch's indexing and gather kernels
+    over all kernels'. scopes {name: (module, function name)}: during the
+    profiled call each function runs inside a profiler range of that name,
+    and the device time of its kernels is printed as a share of all
+    (device_times). `fields` join the printed line. Returns {name: share}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
     def in_range(label, fn):
         def call(*args, **kw):
             with record_function(label):
                 return fn(*args, **kw)
         return call
 
-    dev = scene.device
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     render()
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
     # the profiler slows the host side; its device time is divided by the
-    # wall time of the same render without it
+    # wall time of the same call without it
     with contextlib.ExitStack() as stack:
         for label, (mod, fn) in (scopes or {}).items():
             stack.enter_context(mock.patch.object(mod, fn, in_range(label, getattr(mod, fn))))
@@ -743,7 +761,7 @@ def phase_profile(name, scene, cam, cfg, li=None, scopes=None, **render_kw):
                     if "index" in k.lower() or "gather" in k.lower())
     shares = {label: round(t / device_ns, 4) for label, t in in_label.items()}
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
-    say("profile", render=name, resolution=f"{cam.width}x{cam.height}", spp=cfg.spp,
+    say("profile", render=name, **fields,
         wall_s=round(wall_s, 4), device_busy_s=round(device_ns / 1e9, 4),
         busy_share=round(device_ns / 1e9 / wall_s, 4),
         gather_share=round(gather_ns / device_ns, 4),
@@ -1125,11 +1143,11 @@ def keeping_launches(mod):
     return stack, kept
 
 
-def check_kept(mod, kept, chunk=1 << 20):
+def check_kept(mod, kept, chunk=1 << 20, entries=None):
     """Reruns each kept launch of `mod` through its plain twin, `chunk`
     rays at a time, and raises where a key, base or blocked differs, or
-    where an entry of `mod` kept no launch. Returns {entry: the batch
-    sizes checked}."""
+    where an entry of `mod` (of `entries`, where given) kept no launch.
+    Returns {entry: the batch sizes checked}."""
     import torch
 
     twins = {entry: twin for (owner, entry), twin in plain_twins().items() if owner is mod}
@@ -1145,7 +1163,7 @@ def check_kept(mod, kept, chunk=1 << 20):
             raise AssertionError(f"{entry} at {n} rays: {differ} results differ from "
                                  "the plain twin's")
         checked.setdefault(entry, []).append(n)
-    if set(checked) != set(twins):
+    if not set(twins if entries is None else entries) <= set(checked):
         raise AssertionError(f"launches kept of {sorted(twins)}: {sorted(checked)}")
     return checked
 
@@ -2608,6 +2626,37 @@ def run_cli_counted(mod, argv, dev):
     return launches, checked, times
 
 
+def cli_cornell_files(tmp, dev):
+    """[frontend]'s configuration as a user's scene files in `tmp`:
+    builtin.cornell_box as one OBJ per material run, `ldsampler` at
+    FRONTEND_SPP, hdrfilm with a Gaussian rfilter, a thin lens (aperture
+    0.03, focus 1.9), CLI_CORNELL_WIDTH^2, path at depth 8. Returns (the
+    XML's path, the OBJ groups, the builtin scene and pinhole camera, the
+    config the file names)."""
+    from mitsuba_tpu_torch.film import film
+    from mitsuba_tpu_torch.integrators import common
+    from mitsuba_tpu_torch.samplers import qmc
+    from mitsuba_tpu_torch.scene import builtin
+
+    width, spp = CLI_CORNELL_WIDTH, FRONTEND_SPP
+    scene, cam = builtin.cornell_box(width, width, device=dev)
+    cfg = common.RenderConfig(spp=spp, max_depth=FRONTEND_DEPTH, rr_depth=5, seed=0,
+                              sampler=qmc.SAMPLER_LD, filter=film.FILTER_GAUSSIAN)
+    origin, target, up = CORNELL_LOOKAT
+    sensor_xml = (f'<sensor type="thinlens"><float name="fov" value="{CORNELL_FOV}"/>'
+                  f'<float name="apertureRadius" value="{FRONTEND_APERTURE}"/>'
+                  f'<float name="focusDistance" value="{FRONTEND_FOCUS}"/>'
+                  f'<transform name="toWorld"><lookat origin="{origin}" target="{target}" '
+                  f'up="{up}"/></transform><sampler type="ldsampler"><integer '
+                  f'name="sampleCount" value="{spp}"/></sampler><film type="$film">'
+                  f'<integer name="width" value="{width}"/><integer name="height" '
+                  f'value="{width}"/><rfilter type="gaussian"/></film></sensor>')
+    integrator_xml = (f'<integrator type="path"><integer name="maxDepth" '
+                      f'value="{FRONTEND_DEPTH}"/></integrator>')
+    xml_path, groups = write_scene_files(tmp, scene, sensor_xml, integrator_xml)
+    return xml_path, groups, scene, cam, cfg
+
+
 def phase_cli_cornell(dev):
     """[frontend]'s configuration as a user's scene file: builtin.cornell_box
     written as one OBJ per material run, `ldsampler` at FRONTEND_SPP,
@@ -2621,31 +2670,15 @@ def phase_cli_cornell(dev):
     import dataclasses
     import tempfile
 
-    from mitsuba_tpu_torch.film import film
     from mitsuba_tpu_torch.integrators import common, path
     from mitsuba_tpu_torch.io import image
     from mitsuba_tpu_torch.ops import brute_kernel as bk
-    from mitsuba_tpu_torch.samplers import qmc
-    from mitsuba_tpu_torch.scene import builtin, xml
+    from mitsuba_tpu_torch.scene import xml
 
     width, spp = CLI_CORNELL_WIDTH, FRONTEND_SPP
-    scene, cam = builtin.cornell_box(width, width, device=dev)
-    cfg = common.RenderConfig(spp=spp, max_depth=FRONTEND_DEPTH, rr_depth=5, seed=0,
-                              sampler=qmc.SAMPLER_LD, filter=film.FILTER_GAUSSIAN)
-    ref = common.render(scene, thin_lens(cam), path.li, cfg).cpu().numpy()
-    origin, target, up = CORNELL_LOOKAT
-    sensor_xml = (f'<sensor type="thinlens"><float name="fov" value="{CORNELL_FOV}"/>'
-                  f'<float name="apertureRadius" value="{FRONTEND_APERTURE}"/>'
-                  f'<float name="focusDistance" value="{FRONTEND_FOCUS}"/>'
-                  f'<transform name="toWorld"><lookat origin="{origin}" target="{target}" '
-                  f'up="{up}"/></transform><sampler type="ldsampler"><integer '
-                  f'name="sampleCount" value="{spp}"/></sampler><film type="$film">'
-                  f'<integer name="width" value="{width}"/><integer name="height" '
-                  f'value="{width}"/><rfilter type="gaussian"/></film></sensor>')
-    integrator_xml = (f'<integrator type="path"><integer name="maxDepth" '
-                      f'value="{FRONTEND_DEPTH}"/></integrator>')
     with tempfile.TemporaryDirectory() as tmp:
-        xml_path, groups = write_scene_files(tmp, scene, sensor_xml, integrator_xml)
+        xml_path, groups, scene, cam, cfg = cli_cornell_files(tmp, dev)
+        ref = common.render(scene, thin_lens(cam), path.li, cfg).cpu().numpy()
         tris = check_loaded("cli_cornell", xml_path, groups, scene, cam, dev)
         wall = run_cli_subprocess(xml_path, Path(tmp) / "sub.exr")
         launches, checked, times = run_cli_counted(bk, [xml_path, "-o", Path(tmp) / "in.exr"], dev)
@@ -2733,6 +2766,368 @@ def phase_cli_mesh(dev):
     return out
 
 
+# --- the bidirectional family -------------------------------------------------
+
+BIDIR_WIDTH, BIDIR_SMALL = 256, 128
+BIDIR_SPP = 16
+BIDIR_DEPTH = 8
+BIDIR_REF_SPP = 64
+BIDIR_PROFILE_SPP = 4
+AOV_SPP = 4
+# the JAX tests' bars on |mean - path's mean| / path's mean
+BDPT_RTOL = 0.05            # tests/test_bdpt.py:20
+LIGHT_IMAGE_RTOL = 0.06     # tests/test_bdpt.py:57
+CAUSTIC_RTOL = 0.12         # tests/test_bdpt.py:71
+LVCBPT_RTOL = 0.08          # tests/test_lvcbpt.py:17, :43, :53
+PTRACER_RTOL = 0.10         # tests/test_ptracer.py:20
+OCCUPANCY_RTOL = 0.15       # tests/test_occupancy.py:42
+MULTICHANNEL_TOL = 1e-4
+MARCH_LANES = 1 << 19
+# the light image's splat (bdpt.splat_to_film) on the card against the CPU
+SPLAT_SAMPLES = 1 << 19
+# the camera's shutter-close pose for [aov]'s motion vectors: 0.05 along x
+MOTION_SHIFT = 0.05
+
+
+def _bidir_cfg(spp=None, depth=None, **changes):
+    """The group's RenderConfig: BIDIR_SPP and BIDIR_DEPTH unless given,
+    rr 5, seed 0."""
+    from mitsuba_tpu_torch.integrators import common
+
+    return common.RenderConfig(spp=spp or BIDIR_SPP, max_depth=depth or BIDIR_DEPTH,
+                               rr_depth=5, seed=0, **changes)
+
+
+def path_mean(scene, cam, depth, dev):
+    """The mean of path.li's render of the same scene at BIDIR_REF_SPP
+    (seed 0): the reference of the bidirectional mean checks."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common, path
+
+    with torch.no_grad():
+        return float(common.render(scene, cam, path.li,
+                                   _bidir_cfg(BIDIR_REF_SPP, depth)).mean())
+
+
+def bidir_cell(name, make, cfg, dev, scene, cam, ref=None, rtol=None, kernel="b1",
+               need=("closest", "any_hit"), samples=None, **fields):
+    """make(cfg) counted: render_s, samples/s (pixels x spp, or `samples`),
+    step_peak_gb (the device's peak from the render's start less what was
+    allocated there), the kernel's launches (zeroed just before, read just
+    after; every entry in `need` launched, the other kernel and the plain
+    twins never) with the first launch per entry and batch size rerun
+    through the twin (check_kept); the image finite, and its mean within
+    `rtol` of `ref` where given. Then the device busy share of make() at
+    BIDIR_PROFILE_SPP (profile_call). Returns (image, {path: launches})."""
+    import dataclasses
+
+    import torch
+
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+
+    mod, other = (bvk, bk) if kernel == "b2" else (bk, bvk)
+    for counts in (bk, bvk):
+        counts.reset_counts()
+    keeping, kept = keeping_launches(mod)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with keeping:
+        img, render_s = timed(lambda: make(cfg), dev)
+    step_peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    launches = dict(mod.KERNEL_LAUNCHES)
+    plain = {**bk.PLAIN_CALLS, **bvk.PLAIN_CALLS}
+    others = dict(other.KERNEL_LAUNCHES)
+    twin_entry = {"closest": "closest_key", "any_hit": "blocked" if mod is bvk else "any_hit"}
+    checked = check_kept(mod, kept, entries=[twin_entry[k] for k in need])
+    del kept
+    mean = float(img.mean())
+    n = samples or cam.width * cam.height * cfg.spp
+    line = dict(resolution=f"{cam.width}x{cam.height}", spp=cfg.spp, max_depth=cfg.max_depth,
+                tris=scene.num_triangles, **fields, render_s=round(render_s, 4),
+                samples_per_s=round(n / render_s), step_peak_gb=round(step_peak_gb, 3),
+                mean_radiance=round(mean, 6))
+    if ref is not None:
+        line.update(path_mean=round(ref, 6), rel_to_path=round(abs(mean - ref) / ref, 5),
+                    bar=rtol)
+    say(name, **line, **{f"{kernel}_launches": launches}, plain_calls=plain,
+        other_kernel_launches=others, twin_checked_rays=checked, twin_mismatches=0)
+    require_finite(name, img, tuple(img.shape))
+    if min(launches[k] for k in need) == 0 or any(plain.values()) or any(others.values()):
+        raise AssertionError(f"{name} bypassed {kernel}: launches {launches}, plain calls "
+                             f"{plain}, other kernel {others}")
+    if ref is not None and not abs(mean - ref) <= rtol * ref:
+        raise AssertionError(f"{name}: mean {mean} against path's {ref}, bar {rtol}")
+    small = dataclasses.replace(cfg, spp=min(cfg.spp, BIDIR_PROFILE_SPP))
+    profile_call(name, lambda: make(small), dev, resolution=f"{cam.width}x{cam.height}",
+                 spp=small.spp)
+    return img, path_launches(name, launches, "bvh" if kernel == "b2" else "brute")
+
+
+def li_render(scene, cam, li):
+    """make(cfg) of a bidir_cell: common.render with the integrator li."""
+    from mitsuba_tpu_torch.integrators import common
+
+    return lambda cfg: common.render(scene, cam, li, cfg)
+
+
+def phase_bdpt(dev):
+    """[bdpt]: bdpt.li through common.render on the Cornell box at 256x256 x
+    16 spp, depth 8 (the headline's), its mean within 5% of path.li's
+    (64 spp). [bdpt_light_image]: bdpt.render (the t=1 splats) with the
+    same settings, within 6%; caustic_box at 128x128 x 16 spp, depth 4,
+    within 12%. Returns B1's launches by path."""
+    from mitsuba_tpu_torch.integrators import bdpt
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = BIDIR_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    ref = path_mean(scene, cam, BIDIR_DEPTH, dev)
+    out = {}
+    for name, make, rtol in (("bdpt", li_render(scene, cam, bdpt.li), BDPT_RTOL),
+                             ("bdpt_light_image", lambda cfg: bdpt.render(scene, cam, cfg),
+                              LIGHT_IMAGE_RTOL)):
+        out.update(bidir_cell(name, make, _bidir_cfg(), dev, scene, cam, ref, rtol)[1])
+    scene, cam = builtin.caustic_box(BIDIR_SMALL, BIDIR_SMALL, device=dev)
+    out.update(bidir_cell("bdpt_light_image_caustic", lambda cfg: bdpt.render(scene, cam, cfg),
+                          _bidir_cfg(depth=4), dev, scene, cam, path_mean(scene, cam, 4, dev),
+                          CAUSTIC_RTOL)[1])
+    return out
+
+
+def phase_lvcbpt(dev):
+    """[lvcbpt]: lvcbpt.li on the Cornell box at 256x256 x 16 spp, depth 8,
+    the power heuristic (mis_mode 0), within 8% of path.li; the balance and
+    uniform modes at 128x128 x 16 spp, and cornell_box_lit("point") at
+    128x128 x 16 spp, depth 3, each within 8%. Returns B1's launches by
+    path."""
+    from mitsuba_tpu_torch.integrators import lvcbpt
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = BIDIR_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    out = dict(bidir_cell("lvcbpt", li_render(scene, cam, lvcbpt.li), _bidir_cfg(mis_mode=0),
+                          dev, scene, cam, path_mean(scene, cam, BIDIR_DEPTH, dev),
+                          LVCBPT_RTOL, mis_mode=0)[1])
+    scene, cam = builtin.cornell_box(BIDIR_SMALL, BIDIR_SMALL, device=dev)
+    ref = path_mean(scene, cam, BIDIR_DEPTH, dev)
+    for mode, label in ((1, "balance"), (2, "uniform")):
+        out.update(bidir_cell(f"lvcbpt_{label}", li_render(scene, cam, lvcbpt.li),
+                              _bidir_cfg(mis_mode=mode), dev, scene, cam, ref, LVCBPT_RTOL,
+                              mis_mode=mode)[1])
+    scene, cam = builtin.cornell_box_lit("point", BIDIR_SMALL, BIDIR_SMALL, device=dev)
+    out.update(bidir_cell("lvcbpt_point", li_render(scene, cam, lvcbpt.li), _bidir_cfg(depth=3),
+                          dev, scene, cam, path_mean(scene, cam, 3, dev), LVCBPT_RTOL)[1])
+    return out
+
+
+def phase_ptracer_vpl(dev):
+    """[ptracer]: ptracer.render on the Cornell box at 256x256 x 16 spp,
+    depth 8: 1,048,576 particles in 2 chunks of 2^19, within 10% of
+    path.li. [vpl]: vpl.li at 256x256 x 16 spp, its mean beside path's (no
+    bar: VPL clamps its geometry term, biased by design). [splat_check]:
+    the light image's splat on the card against the CPU. Returns B1's
+    launches by path."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import bdpt, ptracer, vpl
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = BIDIR_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    ref = path_mean(scene, cam, BIDIR_DEPTH, dev)
+    cfg = _bidir_cfg()
+    n = w * w * cfg.spp
+    out = dict(bidir_cell("ptracer", lambda c: ptracer.render(scene, cam, c), cfg, dev, scene,
+                          cam, ref, PTRACER_RTOL, particles=n,
+                          chunks=-(-n // ptracer.CHUNK))[1])
+    out.update(bidir_cell("vpl", li_render(scene, cam, vpl.li), cfg, dev, scene, cam,
+                          path_mean_for_comparison=round(ref, 6))[1])
+
+    # the splats of ptracer and bdpt.render: the same SPLAT_SAMPLES raster
+    # positions and contributions on the card and on the CPU, per pixel at
+    # C31's bar (the card adds in atomic order)
+    rs = np.random.RandomState(2)
+    px, py = (torch.from_numpy(rs.uniform(-1, w + 1, SPLAT_SAMPLES).astype(np.float32))
+              for _ in range(2))
+    val = torch.from_numpy(rs.uniform(0, 2, (SPLAT_SAMPLES, 3)).astype(np.float32))
+    card = torch.zeros((w * w, 3), device=dev)
+    bdpt.splat_to_film(card, cam, px.to(dev), py.to(dev), val.to(dev))
+    cpu = torch.zeros((w * w, 3))
+    bdpt.splat_to_film(cpu, cam, px, py, val)
+    diff = float((card.cpu() - cpu).abs().max())
+    say("splat_check", samples=SPLAT_SAMPLES, pixels=w * w, max_abs_diff=diff,
+        bar=[SPLAT_RTOL, SPLAT_ATOL])
+    torch.testing.assert_close(card.cpu(), cpu, rtol=SPLAT_RTOL, atol=SPLAT_ATOL)
+    return out
+
+
+def phase_occupancy(dev):
+    """[occupancy]: the map built on the Cornell box (ops/occupancy.attach,
+    res 128); path.li with occupancy_shadows at 256x256 x 64 spp, depth 8,
+    within 15% of the exact render (every shadow ray marched: B1's any-hit
+    never launched); the march's ms per shadow query at 2^19 lanes beside
+    B1's any-hit on the same segments (call_ms, CUDA events) and their
+    agreement; lvcbpt.li with the map (the fork's LVCBPT_OM) at 128x128 x
+    16 spp, its mean beside the exact one. Returns B1's launches by path."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common, lvcbpt, path
+    from mitsuba_tpu_torch.ops import occupancy, trace
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = BIDIR_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    scene_om, build_s = timed(lambda: occupancy.attach(scene), dev)
+    out = {}
+    _, launches = bidir_cell("occupancy_path", li_render(scene_om, cam, path.li),
+                             _bidir_cfg(BIDIR_REF_SPP, occupancy_shadows=True), dev, scene_om,
+                             cam, path_mean(scene, cam, BIDIR_DEPTH, dev), OCCUPANCY_RTOL,
+                             need=("closest",), build_s=round(build_s, 4),
+                             occupied_voxels=int(scene_om.occupancy.grid.sum()))
+    if launches["occupancy_path"]["brute_any_hit"]:
+        raise AssertionError(f"occupancy_path: shadow rays took B1: {launches}")
+    out.update(launches)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.rand((MARCH_LANES, 3), generator=gen, device=dev) * 0.9 + 0.05
+    b = torch.rand((MARCH_LANES, 3), generator=gen, device=dev) * 0.9 + 0.05
+    dist = torch.linalg.norm(b - a, dim=1)
+    d = (b - a) / dist[:, None]
+    march_ms = call_ms(lambda: occupancy.occluded(scene_om.occupancy, a, d, dist), dev)
+    any_hit_ms = call_ms(lambda: trace.any_hit(scene, a, d, dist), dev)
+    agree = float((occupancy.occluded(scene_om.occupancy, a, d, dist)
+                   == trace.any_hit(scene, a, d, dist)).float().mean())
+    say("occupancy_march", lanes=MARCH_LANES, march_ms=round(march_ms, 4),
+        b1_any_hit_ms=round(any_hit_ms, 4), agreement=round(agree, 4),
+        lane_chunk=occupancy.MARCH_LANES)
+
+    small, cam_s = builtin.cornell_box(BIDIR_SMALL, BIDIR_SMALL, device=dev)
+    exact = float(common.render(small, cam_s, lvcbpt.li, _bidir_cfg()).mean())
+    scene_s = occupancy.attach(small)
+    _, launches = bidir_cell("occupancy_lvcbpt", li_render(scene_s, cam_s, lvcbpt.li),
+                             _bidir_cfg(occupancy_shadows=True), dev, scene_s, cam_s,
+                             need=("closest",), exact_mean=round(exact, 6))
+    if launches["occupancy_lvcbpt"]["brute_any_hit"]:
+        raise AssertionError(f"occupancy_lvcbpt: shadow rays took B1: {launches}")
+    out.update(launches)
+    return out
+
+
+def phase_aov(dev):
+    """[aov]: depth, normal, ao and motion (the camera moving MOTION_SHIFT
+    over the shutter) at 256x256 x 4 spp through common.render; then
+    multichannel.render at 256x256 x 4 spp, its radiance channel equal to
+    common.render(path.li) of the same seed within 1e-4. Returns B1's
+    launches by path."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import aov, common, multichannel, path
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = BIDIR_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    end = cam.to_world.clone()
+    end[0, 3] += MOTION_SHIFT
+    cfg = _bidir_cfg(AOV_SPP)
+    out = {}
+    for name, li, need in (("depth", aov.li_depth, ("closest",)),
+                           ("normal", aov.li_normal, ("closest",)),
+                           ("ao", aov.li_ao, ("closest", "any_hit")),
+                           ("motion", aov.li_motion, ("closest",))):
+        c = cam.replace(to_world_end=end) if name == "motion" else cam
+        img, launches = bidir_cell(f"aov_{name}", li_render(scene, c, li), cfg, dev, scene, c,
+                                   need=need)
+        if not float(img.abs().max()) > 0:
+            raise AssertionError(f"aov_{name}: an all-zero image")
+        out.update(launches)
+    img, launches = bidir_cell("multichannel",
+                               lambda c: multichannel.render(scene, cam, c)["radiance"], cfg,
+                               dev, scene, cam)
+    out.update(launches)
+    want = common.render(scene, cam, path.li, cfg)
+    diff = float((img - want).abs().max())
+    say("multichannel_check", max_abs_diff=diff, bar=MULTICHANNEL_TOL)
+    if not torch.allclose(img, want, rtol=MULTICHANNEL_TOL, atol=MULTICHANNEL_TOL):
+        raise AssertionError(f"multichannel radiance against common.render(path.li): {diff}")
+    return out
+
+
+def phase_bidir_mesh(dev):
+    """[bidir_mesh]: sphere_shadow (10,372 triangles, BVH attached) at
+    128x128 x 16 spp, depth 4, through bdpt.li and lvcbpt.li: every search
+    on B2 (none on B1), every kept launch equal to the walk's (check_kept);
+    the means beside path.li's. Returns B2's launches by path."""
+    from mitsuba_tpu_torch.integrators import bdpt, lvcbpt
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = BIDIR_SMALL
+    scene, cam, _ = builtin.sphere_shadow(width=w, height=w, attach_bvh=True, device=dev)
+    ref = path_mean(scene, cam, 4, dev)
+    out = {}
+    for name, li in (("bidir_mesh_bdpt", bdpt.li), ("bidir_mesh_lvcbpt", lvcbpt.li)):
+        out.update(bidir_cell(name, li_render(scene, cam, li), _bidir_cfg(depth=4), dev, scene,
+                              cam, kernel="b2", path_mean_for_comparison=round(ref, 6))[1])
+    return out
+
+
+def phase_cli_bidir(dev):
+    """[cli_bidir]: [cli_cornell]'s scene files with --integrator lvcbpt and
+    with --integrator ptracer, each by the real command (wall time) and by
+    cli.main in process (B1's launches counted and twin checked); each EXR
+    against the in-process render of the loaded scene: lvcbpt at the
+    goldens' bar (check_golden), ptracer at C31's per-pixel bar (its
+    splats' atomic order); the device busy share of each at 4 spp.
+    Returns B1's launches by path."""
+    import dataclasses
+    import tempfile
+
+    from mitsuba_tpu_torch.integrators import common, lvcbpt, ptracer
+    from mitsuba_tpu_torch.io import image
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import xml
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        xml_path = cli_cornell_files(tmp, dev)[0]
+        loaded, lcam, lcfg, _ = xml.load_xml(xml_path, device=dev)
+        for name, make in (("lvcbpt", lambda c: common.render(loaded, lcam, lvcbpt.li, c)),
+                           ("ptracer", lambda c: ptracer.render(loaded, lcam, c))):
+            want = make(lcfg).cpu().numpy()
+            args = ["--integrator", name]
+            wall = run_cli_subprocess(xml_path, tmp / f"sub_{name}.exr", args)
+            launches, checked, times = run_cli_counted(
+                bk, [xml_path, "-o", tmp / f"in_{name}.exr", *args], dev)
+            imgs = [image.read_exr(tmp / f"{k}_{name}.exr") for k in ("sub", "in")]
+            if name == "ptracer":
+                fit = {"max_abs_diff": [float(np.abs(im - want).max()) for im in imgs],
+                       "bar": [SPLAT_RTOL, SPLAT_ATOL]}
+                if not all(np.allclose(im, want, rtol=SPLAT_RTOL, atol=SPLAT_ATOL)
+                           for im in imgs):
+                    raise AssertionError(f"cli_ptracer: the EXRs against the in-process "
+                                         f"render: {fit}")
+            else:
+                checks = [check_golden(im, want) for im in imgs]
+                fit = {"pixels_off": [c[0] for c in checks],
+                       "max_abs_diff": [c[1] for c in checks]}
+            say(f"cli_{name}", resolution=f"{lcam.width}x{lcam.height}", spp=lcfg.spp,
+                subprocess_wall_s=round(wall, 3), **times, b1_launches=launches,
+                twin_checked_rays=checked, twin_mismatches=0, **fit,
+                mean_radiance=round(float(imgs[1].mean()), 6))
+            small = dataclasses.replace(lcfg, spp=BIDIR_PROFILE_SPP)
+            profile_call(f"cli_{name}", lambda: make(small), dev,
+                         resolution=f"{lcam.width}x{lcam.height}", spp=small.spp)
+            out.update(path_launches(f"cli_{name}", launches))
+    return out
+
+
+BIDIR_PHASES = (phase_bdpt, phase_lvcbpt, phase_ptracer_vpl, phase_occupancy, phase_aov,
+                phase_bidir_mesh, phase_cli_bidir)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2813,12 +3208,19 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths.update(phase(dev))
         cli_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
+    t_bidir = time.perf_counter()
+    bidir_s = {}
+    for phase in BIDIR_PHASES:
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        bidir_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
     t_end = time.perf_counter()
     say("total", seconds=round(t_end - t_start, 3),
         materials_seconds=round(t_media - t_materials, 3),
         media_seconds=round(t_frontend - t_media, 3), media_phase_seconds=media_s,
         frontend_seconds=round(t_cli - t_frontend, 3), frontend_phase_seconds=frontend_s,
-        cli_seconds=round(t_end - t_cli, 3), cli_phase_seconds=cli_s)
+        cli_seconds=round(t_bidir - t_cli, 3), cli_phase_seconds=cli_s,
+        bidir_seconds=round(t_end - t_bidir, 3), bidir_phase_seconds=bidir_s)
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -24,11 +24,18 @@ import os
 import sys
 import time
 
-# the integrators whose Li function the port has; every other name of the
-# JAX CLI (aov, spectral, bdpt, vpl, the light-path renderers) waits for A12
-_LI_NAMES = {"path": "path", "mypath": "path", "mypath2": "path",
-             "direct": "direct", "volpath": "volpath",
-             "volpath_simple": "volpath"}
+# the integrators whose Li function the port has, as (module, function)
+_LI_NAMES = {"path": ("path", "li"), "mypath": ("path", "li"), "mypath2": ("path", "li"),
+             "direct": ("direct", "li"), "volpath": ("volpath", "li"),
+             "volpath_simple": ("volpath", "li"), "depth": ("aov", "li_depth"),
+             "normal": ("aov", "li_normal"), "field": ("aov", "li_normal"),
+             "ao": ("aov", "li_ao"), "motion": ("aov", "li_motion"), "bdpt": ("bdpt", "li"),
+             "mybdpt": ("bdpt", "li"), "mybdpt2": ("bdpt", "li"), "lvcbpt": ("lvcbpt", "li"),
+             "vpl": ("vpl", "li")}
+# the integrators that render the whole film themselves: resolve_integrator
+# returns the name. Every other name of the JAX CLI (spectral, sppm, ppm,
+# photonmapper, pssmlt, mlt, erpt, irrcache, bre) waits for ROADMAP A12.
+_FILM_RENDERERS = ("ptracer", "multichannel")
 
 
 def build_argparser():
@@ -48,7 +55,8 @@ def build_argparser():
                     help="prepend a file-resolver search path "
                          "(repeatable; mitsuba -a parity)")
     ap.add_argument("--integrator", default=None,
-                    help="override integrator (path/direct/volpath)")
+                    help="override integrator (path, direct, volpath, bdpt, lvcbpt, "
+                         "vpl, ptracer, multichannel, depth, normal, ao, motion, ...)")
     ap.add_argument("--mesh", default=None, metavar="DP,SP",
                     help="multi-device rendering: not ported yet (ROADMAP A13)")
     ap.add_argument("--distributed", default=None, metavar="HOST:PORT,N,I",
@@ -84,15 +92,20 @@ def build_argparser():
 
 
 def resolve_integrator(name: str):
-    """The port's Li function for an integrator name; exits naming ROADMAP
-    A12 for every integrator not ported yet."""
+    """The port's Li function for an integrator name, or the name itself for
+    the integrators that render the whole film themselves (ptracer,
+    multichannel); exits naming ROADMAP A12 for every integrator not
+    ported yet."""
+    if name in _FILM_RENDERERS:
+        return name
     if name not in _LI_NAMES:
         raise SystemExit(
             f"integrator '{name}' is not ported yet (ROADMAP A12); "
-            f"have: {sorted(_LI_NAMES)}")
+            f"have: {sorted(_LI_NAMES) + list(_FILM_RENDERERS)}")
     import importlib
 
-    return importlib.import_module(f".integrators.{_LI_NAMES[name]}", __package__).li
+    module, fn = _LI_NAMES[name]
+    return getattr(importlib.import_module(f".integrators.{module}", __package__), fn)
 
 
 def _device(args):
@@ -233,7 +246,26 @@ def _render_one(args):
     out = args.output or (scene_path.rsplit(".", 1)[0] + ".exr")
 
     t_render, bin_loads = time.perf_counter(), 0.0
-    if args.time_bins > 1:
+    if li_fn == "multichannel":
+        # one image per channel: out.exr (radiance), out_depth.exr, ...
+        from .integrators import multichannel
+
+        base, ext = out.rsplit(".", 1)
+        outs = multichannel.render(scene, cam, cfg)
+        for ch, arr in outs.items():
+            p = out if ch == "radiance" else f"{base}_{ch}.{ext}"
+            imagelib.write_image(p, arr.cpu().numpy())
+            loglib.Log(loglib.EInfo, "wrote %s", p)
+        _record_times(st, load_s, bvh_s, time.perf_counter() - t_render)
+        st.add("Render.wall_clock", time.time() - t0, unit="s")
+        if not args.quiet:
+            st.print_stats()
+        return 0
+    if li_fn == "ptracer":
+        from .integrators import ptracer
+
+        img = ptracer.render(scene, cam, cfg).cpu().numpy()
+    elif args.time_bins > 1:
         # time-binned object motion blur (deformable.cpp / track.h
         # analog): each bin re-loads the scene at a stratified shutter time
         img = None

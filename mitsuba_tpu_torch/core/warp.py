@@ -1,5 +1,5 @@
-"""Sample warping: [0,1)^2 -> triangles, hemispheres, spheres (port of
-the parts of core/warp.py that the path tracer calls)."""
+"""Sample warping: [0,1)^2 -> triangles, hemispheres, spheres and cones
+(port of the parts of core/warp.py that the integrators call)."""
 from __future__ import annotations
 
 import math
@@ -9,6 +9,7 @@ import torch
 from . import math as m
 
 INV_PI = 1.0 / math.pi
+INV_TWOPI = 0.5 / math.pi
 INV_FOURPI = 0.25 / math.pi
 
 
@@ -50,6 +51,18 @@ def square_to_cosine_hemisphere(u: torch.Tensor) -> torch.Tensor:
 
 def square_to_cosine_hemisphere_pdf(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(v[..., 2], 0.0) * INV_PI
+
+
+def square_to_uniform_cone(u: torch.Tensor, cos_cutoff) -> torch.Tensor:
+    """Uniform direction inside a cone around +z."""
+    z = 1.0 - u[..., 0] * (1.0 - cos_cutoff)
+    r = m.safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_cone_pdf(cos_cutoff) -> torch.Tensor:
+    return INV_TWOPI / (1.0 - cos_cutoff)
 
 
 def square_to_uniform_triangle(u: torch.Tensor) -> torch.Tensor:

@@ -36,6 +36,10 @@ class RenderConfig:
     strict_normals: bool = False
     sampler: int = 0            # samplers/qmc.py SAMPLER_* family
     mis_mode: int = 0           # 0=power, 1=balance, 2=uniform
+    # shadow rays through the occupancy map (ops/occupancy.py; the fork's
+    # myPath2_OM / LVCBPT_OM variants): approximate, where the scene has one
+    occupancy_shadows: bool = False
+    ao_length: float = -1.0     # the ao integrator's ray length (<0: unbounded)
     hide_emitters: bool = False
     film_tiled: bool = False    # tiledhdrfilm: row bands streamed to disk
     cauchy_b: float = 0.0       # dispersive dielectrics' Cauchy B (um^2)

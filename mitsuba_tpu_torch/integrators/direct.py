@@ -49,7 +49,7 @@ def li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig) -> torch.Tenso
     wo_local = m.to_local(ns, ds.d)
     f, pdf_b = bsdflib.eval_pdf(sp, wi_local, wo_local, families)
     # raw-origin shadow ray, t in (eps, dist*(1-eps)), as in path.py
-    blocked = trace.shadow_blocked(scene, p, ds.d, ds.dist)
+    blocked = trace.shadow_blocked(scene, p, ds.d, ds.dist, cfg.occupancy_shadows)
     ok = active & (ds.pdf > 0.0) & ~blocked
     w = torch.where(ds.is_delta, 1.0, power_heuristic(ds.pdf, pdf_b))
     L = L + torch.where(ok[:, None], f * ds.radiance * m.safe_div(w, ds.pdf)[:, None], 0.0)

@@ -105,7 +105,7 @@ def _li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
             same_side = (m.dot(ds.d, ng) * m.cos_theta(wo_local)) > 0.0
             nee_possible = nee_possible & same_side
         # shadow ray from the raw point with t in (eps, dist*(1-eps))
-        blocked = trace.shadow_blocked(scene, p, ds.d, ds.dist)
+        blocked = trace.shadow_blocked(scene, p, ds.d, ds.dist, cfg.occupancy_shadows)
         rays = rays + nee_possible.sum()
         w_nee = torch.where(ds.is_delta, 1.0,
                             mis_weight(cfg.mis_mode, ds.pdf, pdf_bsdf_nee))

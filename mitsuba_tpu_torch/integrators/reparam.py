@@ -305,7 +305,7 @@ def li_reparam(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         if cfg.strict_normals:
             same_side = (m.dot(ds.d, ng) * m.cos_theta(wo_local)) > 0.0
             nee_possible = nee_possible & same_side
-        blocked = trace.shadow_blocked(scene, p, ds.d, ds.dist)
+        blocked = trace.shadow_blocked(scene, p, ds.d, ds.dist, cfg.occupancy_shadows)
         w_nee = torch.where(ds.is_delta, 1.0,
                             mis_weight(cfg.mis_mode, ds.pdf, pdf_bsdf_nee))
         contrib = beta_thr * f_nee * ds.radiance \

@@ -138,7 +138,7 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
             tmax_c = torch.where(lane_live, 3e37, 0.0)
             its, blocked = trace.closest_and_any(
                 scene, o, d, tmax_c, s["pend_o"], s["pend_d"],
-                torch.where(s["pend"], s["pend_dist"], 0.0))
+                torch.where(s["pend"], s["pend_dist"], 0.0), cfg.occupancy_shadows)
             resolved = torch.where((s["pend"] & ~blocked)[:, None], s["pend_contrib"], 0.0)
             to_accum = s["pend_accum"][:, None]
             L_accum_in = s["L_accum"] + torch.where(to_accum, resolved, 0.0)
@@ -198,7 +198,7 @@ def render(scene, cam, cfg: RenderConfig, lanes_per_pixel: int = 1,
                             mis_weight(cfg.mis_mode, ds.pdf, pdf_b_nee))
         contrib = beta * f_nee * ds.radiance * m.safe_div(w_nee, ds.pdf)[:, None]
         if not fuse:
-            blocked = trace.shadow_blocked(scene, p, ds.d, ds.dist)
+            blocked = trace.shadow_blocked(scene, p, ds.d, ds.dist, cfg.occupancy_shadows)
             L_path = L_path + torch.where((nee_ok & ~blocked)[:, None], contrib, 0.0)
 
         # BSDF sample + continuation decision

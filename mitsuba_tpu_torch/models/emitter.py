@@ -11,9 +11,14 @@ sample `is_delta` (MIS weight 1). The three groups split the first
 uniform by `scene.group_probs` (compute_group_probs: by power), else
 evenly. Row fetches are plain indexing: the JAX package's one-hot matmul
 (ops/gather.py) exists only because row gathers are slow on a TPU.
+
+The emitter ray API (`sample_emitter_ray` and the connection and pdf
+helpers below it) starts the light subpaths of the particle tracer and
+the bidirectional integrators from every emitter kind.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
@@ -173,11 +178,7 @@ def sample_direct(scene, ref_p: torch.Tensor, u3: torch.Tensor) -> DirectSample:
         dist_d = m.length(to_l)
         d_pos = to_l / torch.clamp_min(dist_d, 1e-12)[:, None]
         inv_d2 = m.safe_div(1.0, dist_d * dist_d)
-        # spot falloff: 1 inside the beam width, linear to 0 at the cutoff
-        cos_spot = m.dot(-d_pos, ldir)
-        fall = torch.clamp(m.safe_div(cos_spot - cut[..., 0],
-                                      torch.clamp_min(cut[..., 1] - cut[..., 0], 1e-6)),
-                           0.0, 1.0)
+        fall = _falloff(m.dot(-d_pos, ldir), cut)
         rad_point = inten * inv_d2[:, None]
         rad_spot = rad_point * fall[:, None]
         is_dirl = kind == _ir.DELTA_DIRECTIONAL
@@ -207,6 +208,254 @@ def sample_direct(scene, ref_p: torch.Tensor, u3: torch.Tensor) -> DirectSample:
     n_l = torch.where((is_delta | pick_env)[:, None], 0.0, ng)
     return DirectSample(d=d, dist=dist, radiance=rad, pdf=pdf,
                         is_env=pick_env, is_delta=is_delta, n_l=n_l)
+
+
+# ---------------------------------------------------------------------------
+# Emitter rays (light-path starts): Scene::sampleEmitterRay (scene.cpp:1103)
+# over area, point, spot, directional and constant/envmap emitters.
+# ---------------------------------------------------------------------------
+
+# emitter-vertex kind codes carried by light subpaths (per lane)
+EV_AREA = 0
+EV_ENV = 1
+EV_POINT = 2
+EV_SPOT = 3
+EV_DIR = 4
+
+
+class EmitterRaySample(NamedTuple):
+    """A sampled light-path origin: the ray and the pdfs BDPT's MIS needs.
+
+    z0 is the emitter vertex.
+      beta     = the full ray weight Le/(sel pdf_pos pdf_dir): the power a
+                 particle carries.
+      beta_pos = the weight of z0 alone, for s=1 connections: area Le/pdf_pos;
+                 point and spot I/sel (the falloff is applied when
+                 connecting); env L(d)/(pdf_dir sel); directional E/sel.
+      pdf_pos  = the pdf of z0 in its own measure: area lights sel/area; env
+                 sel pdf_dir (solid angle: the direction is the env vertex);
+                 delta-position lights sel.
+      pdf_dir  = the pdf of the direction given z0: area cos/pi; point
+                 1/4pi; spot the cone's; env and directional the bounding
+                 disk's 1/(pi r^2) (area measure: infinite lights swap the
+                 roles of position and direction).
+    """
+
+    o: torch.Tensor          # (N,3) ray origin (offset)
+    d: torch.Tensor          # (N,3) ray direction
+    beta: torch.Tensor       # (N,3)
+    ng: torch.Tensor         # (N,3) normal at the origin (delta, infinite: the ray direction)
+    pos: torch.Tensor        # (N,3) emitter vertex (not offset)
+    beta_pos: torch.Tensor   # (N,3)
+    pdf_pos: torch.Tensor    # (N,)
+    pdf_dir: torch.Tensor    # (N,)
+    kind: torch.Tensor       # (N,) int32 EV_*
+    tri: torch.Tensor        # (N,) area triangle id (0 where not an area light)
+    aux_dir: torch.Tensor    # (N,3) spot axis / infinite light's ray direction
+    cutoff: torch.Tensor     # (N,2) spot (cos cutoff, cos beam)
+    delta_pos: torch.Tensor  # (N,) bool
+    delta_dir: torch.Tensor  # (N,) bool
+    is_env: torch.Tensor     # (N,) bool
+    is_area: torch.Tensor    # (N,) bool
+
+
+def sample_emitter_ray(scene, u_sel, u_pos, u_dir) -> EmitterRaySample:
+    """A ray leaving an emitter, every kind in one masked computation: the
+    group by u_sel (as sample_direct), then a point and a direction."""
+    n = u_sel.shape[0]
+    dev = u_sel.device
+    em = scene.emitters
+    pg_area, env_p, p_delta = _group_probs(scene)
+    ray_eps = 1e-3
+
+    def falses():
+        return torch.zeros((n,), dtype=torch.bool, device=dev)
+
+    pick_env = (u_sel < env_p) if scene.has_env else falses()
+    de = scene.delta_emitters
+    pick_delta = (u_sel >= env_p) & (u_sel < env_p + p_delta) if de is not None else falses()
+    is_area = ~(pick_env | pick_delta)
+
+    # --- area branch ----------------------------------------------------
+    u_area = torch.clamp((u_sel - env_p - p_delta) / max(pg_area, 1e-9), 0.0, 1.0)
+    idx = torch.clamp(torch.searchsorted(em.tri_cdf, u_area, right=False),
+                      0, em.tri_cdf.shape[0] - 1)
+    tri = em.tri_index[idx]
+    sel_area = em.tri_pdf[idx] * max(pg_area, 1e-9)
+    p0, e1, e2 = scene.tri_vertices()
+    p0t, e1t, e2t = p0[tri], e1[tri], e2[tri]
+    b = warp.square_to_uniform_triangle(u_pos)
+    pos = p0t + e1t * b[..., 0:1] + e2t * b[..., 1:2]
+    ngv = m.cross(e1t, e2t)
+    two_a = m.length(ngv)
+    ng = ngv / torch.clamp_min(two_a, 1e-20)[:, None]
+    area = 0.5 * two_a
+    d = m.to_world(ng, warp.square_to_cosine_hemisphere(u_dir))
+    le = em.radiance[em.tri_emitter[idx]]
+    pdf_pos = m.safe_div(sel_area, area)
+    pdf_dir = torch.clamp_min(m.dot(d, ng), 0.0) * (1.0 / math.pi)
+    beta_pos = le / torch.clamp_min(pdf_pos, 1e-20)[:, None]
+    beta = le * (math.pi * m.safe_div(area, sel_area))[:, None]
+    o = pos + ng * ray_eps
+    kind = torch.full((n,), EV_AREA, dtype=torch.int32, device=dev)
+    aux_dir = d
+    cutoff = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    delta_pos = falses()
+    delta_dir = falses()
+
+    c_bs, r_bs = scene_bsphere(scene)
+    disk_pdf = 1.0 / (math.pi * r_bs * r_bs)
+
+    # --- delta branch: point, spot, directional -------------------------
+    if de is not None:
+        k = de.kind.shape[0]
+        u_d = torch.clamp((u_sel - env_p) / max(p_delta, 1e-9), 0.0, 1.0 - 1e-7)
+        which = torch.clamp_max((u_d * k).to(torch.int64), k - 1)
+        dkind = de.kind[which]
+        lp = de.position[which]
+        ldir = de.direction[which]
+        inten = de.intensity[which]
+        cut = de.cutoff[which]
+        sel = max(p_delta, 1e-9) / k
+
+        is_spot = dkind == _ir.DELTA_SPOT
+        is_dirl = dkind == _ir.DELTA_DIRECTIONAL
+        is_coll = dkind == _ir.DELTA_COLLIMATED
+
+        d_sphere = warp.square_to_uniform_sphere(u_dir)
+        d_cone = m.to_world(ldir, warp.square_to_uniform_cone(u_dir, cut[..., 0]))
+        pdf_cone = warp.square_to_uniform_cone_pdf(cut[..., 0])
+        fall = _falloff(m.dot(d_cone, ldir), cut)
+        # directional: the origin on the bounding sphere's disk across the beam
+        off = warp.square_to_uniform_disk_concentric(u_pos) * r_bs
+        t1, t2 = m.coordinate_system(ldir)
+        o_disk = c_bs - ldir * r_bs + t1 * off[..., 0:1] + t2 * off[..., 1:2]
+
+        d_delta = torch.where((is_dirl | is_coll)[:, None], ldir,
+                              torch.where(is_spot[:, None], d_cone, d_sphere))
+        pos_delta = torch.where(is_dirl[:, None], o_disk, lp)
+        pdf_dir_delta = torch.where(
+            is_dirl | is_coll, 1.0,
+            torch.where(is_spot, pdf_cone, warp.square_to_uniform_sphere_pdf()))
+        beta_delta = torch.where(
+            is_dirl[:, None], inten * (math.pi * r_bs * r_bs) / sel,
+            torch.where(is_spot[:, None], inten * m.safe_div(fall, pdf_cone)[:, None] / sel,
+                        torch.where(is_coll[:, None], inten / sel,
+                                    inten * (4.0 * math.pi / sel))))
+        kind_delta = torch.where(is_dirl, EV_DIR,
+                                 torch.where(is_spot, EV_SPOT, EV_POINT)).to(torch.int32)
+
+        o = torch.where(pick_delta[:, None], pos_delta + d_delta * ray_eps, o)
+        d = torch.where(pick_delta[:, None], d_delta, d)
+        pos = torch.where(pick_delta[:, None], pos_delta, pos)
+        ng = torch.where(pick_delta[:, None], d_delta, ng)
+        beta = torch.where(pick_delta[:, None], beta_delta, beta)
+        beta_pos = torch.where(pick_delta[:, None], inten / sel, beta_pos)
+        pdf_pos = torch.where(pick_delta, sel, pdf_pos)
+        pdf_dir = torch.where(pick_delta, torch.where(is_dirl, disk_pdf, pdf_dir_delta), pdf_dir)
+        kind = torch.where(pick_delta, kind_delta, kind)
+        aux_dir = torch.where(pick_delta[:, None], ldir, aux_dir)
+        cutoff = torch.where(pick_delta[:, None], cut, cutoff)
+        delta_pos = torch.where(pick_delta, ~is_dirl, delta_pos)
+        delta_dir = torch.where(pick_delta, is_dirl | is_coll, delta_dir)
+
+    # --- environment branch ---------------------------------------------
+    if scene.has_env:
+        if scene.envmap is not None:
+            d_out, pdf_env, rad_env = envlib.sample_direction(scene.envmap, u_dir)
+        else:
+            d_out = warp.square_to_uniform_sphere(u_dir)
+            pdf_env = torch.full((n,), warp.square_to_uniform_sphere_pdf(),
+                                 dtype=torch.float32, device=dev)
+            rad_env = scene.env_radiance.expand(n, 3)
+        d_in = -d_out                      # the ray travels into the scene
+        off = warp.square_to_uniform_disk_concentric(u_pos) * r_bs
+        t1, t2 = m.coordinate_system(d_in)
+        o_env = c_bs - d_in * r_bs + t1 * off[..., 0:1] + t2 * off[..., 1:2]
+        sel = max(env_p, 1e-9)
+        beta_env = rad_env * m.safe_div(math.pi * r_bs * r_bs, pdf_env * sel)[:, None]
+        beta_pos_env = rad_env / torch.clamp_min(pdf_env * sel, 1e-20)[:, None]
+
+        o = torch.where(pick_env[:, None], o_env, o)
+        d = torch.where(pick_env[:, None], d_in, d)
+        pos = torch.where(pick_env[:, None], o_env, pos)
+        ng = torch.where(pick_env[:, None], d_in, ng)
+        beta = torch.where(pick_env[:, None], beta_env, beta)
+        beta_pos = torch.where(pick_env[:, None], beta_pos_env, beta_pos)
+        pdf_pos = torch.where(pick_env, pdf_env * sel, pdf_pos)
+        pdf_dir = torch.where(pick_env, disk_pdf, pdf_dir)
+        kind = torch.where(pick_env, EV_ENV, kind)
+        aux_dir = torch.where(pick_env[:, None], d_in, aux_dir)
+        delta_dir = torch.where(pick_env, False, delta_dir)
+
+    return EmitterRaySample(
+        o=o, d=d, beta=beta, ng=ng, pos=pos, beta_pos=beta_pos, pdf_pos=pdf_pos,
+        pdf_dir=pdf_dir, kind=kind, tri=tri, aux_dir=aux_dir, cutoff=cutoff,
+        delta_pos=delta_pos, delta_dir=delta_dir, is_env=pick_env, is_area=is_area)
+
+
+def _falloff(cos_ax, cutoff):
+    """A spot's falloff: 1 inside the beam width, linear to 0 at the cutoff."""
+    return torch.clamp(m.safe_div(cos_ax - cutoff[..., 0],
+                                  torch.clamp_min(cutoff[..., 1] - cutoff[..., 0], 1e-6)),
+                       0.0, 1.0)
+
+
+def connect_emitter_vertex(scene, p, kind, pos, ng, aux_dir, cutoff):
+    """The geometry of connecting surface points p to light-path origins z0
+    (the s=1 connection). Returns (cdir, dist, g, finite); the contribution
+    is beta_eye f_eye(cdir) g beta_pos(z0), where g folds the measure
+    conversion: cos_z/d^2 for area lights, falloff/d^2 for spots, 1/d^2 for
+    points, 1 for the environment and directional lights (a delta
+    direction: only -aux_dir transports)."""
+    to_l = pos - p
+    d2 = torch.clamp_min(m.dot(to_l, to_l), 1e-12)
+    dist_f = torch.sqrt(d2)
+    cdir_f = to_l / dist_f[:, None]
+    inv_d2 = 1.0 / d2
+    g_area = torch.clamp_min(m.dot(ng, -cdir_f), 0.0) * inv_d2
+    # the spot's falloff toward p (light -> p is -cdir)
+    fall = _falloff(m.dot(-cdir_f, aux_dir), cutoff)
+    g = torch.where(kind == EV_AREA, g_area,
+                    torch.where(kind == EV_SPOT, fall * inv_d2,
+                                torch.where(kind == EV_POINT, inv_d2, 1.0)))
+    infinite = (kind == EV_ENV) | (kind == EV_DIR)
+    cdir = torch.where(infinite[:, None], -aux_dir, cdir_f)
+    dist = torch.where(infinite, m.INF * 0.1, dist_f)
+    return cdir, dist, g, ~infinite
+
+
+def emitter_dir_pdf_area(kind, pos, ng, aux_dir, cutoff, disk_pdf, y_p, y_ng) -> torch.Tensor:
+    """Area-measure pdf of the emitter vertex z0 sending a ray through the
+    surface point y (the light side's term in the MIS sums): area cos0/pi
+    cos_y/d^2; point 1/(4 pi) cos_y/d^2; spot the cone's pdf inside the
+    cone; env and directional the parallel-ray density disk_pdf |cos_y|."""
+    to_y = y_p - pos
+    d2 = torch.clamp_min(m.dot(to_y, to_y), 1e-12)
+    w = to_y * torch.rsqrt(d2)[:, None]
+    cos_y_fin = torch.abs(m.dot(w, y_ng)) / d2
+    pdf_area = torch.clamp_min(m.dot(w, ng), 0.0) * (1.0 / math.pi)
+    pdf_point = 1.0 / (4.0 * math.pi)
+    pdf_spot = torch.where(m.dot(w, aux_dir) > cutoff[..., 0],
+                           warp.square_to_uniform_cone_pdf(cutoff[..., 0]), 0.0)
+    cos_y_inf = torch.abs(m.dot(aux_dir, y_ng))
+    return torch.where(
+        kind == EV_AREA, pdf_area * cos_y_fin,
+        torch.where(kind == EV_POINT, pdf_point * cos_y_fin,
+                    torch.where(kind == EV_SPOT, pdf_spot * cos_y_fin, disk_pdf * cos_y_inf)))
+
+
+def emitter_hit_pdf(kind, pos, ng, from_p, bsdf_pdf_sa) -> torch.Tensor:
+    """The pdf, in z0's own measure, of the eye side reaching the emitter
+    vertex z0 by scattering from `from_p` with solid-angle pdf
+    `bsdf_pdf_sa`: area lights convert to area, the environment stays in
+    solid angle, delta lights are never hit (0)."""
+    to_z = pos - from_p
+    d2 = torch.clamp_min(m.dot(to_z, to_z), 1e-12)
+    w = to_z * torch.rsqrt(d2)[:, None]
+    conv = torch.abs(m.dot(w, ng)) / d2
+    return torch.where(kind == EV_AREA, bsdf_pdf_sa * conv,
+                       torch.where(kind == EV_ENV, bsdf_pdf_sa, 0.0))
 
 
 def pdf_direct_area(scene, ref_p, d, dist, prim, cos_l) -> torch.Tensor:

@@ -224,6 +224,13 @@ def _tan_half_aspect(cam: Camera):
     return tan_half, np.float32(cam.height) / np.float32(cam.width)
 
 
+def film_area(cam: Camera) -> torch.Tensor:
+    """The pinhole film's area at unit distance (the 1/A_film of the
+    camera's importance W_e)."""
+    tan_half, aspect = _tan_half_aspect(cam)
+    return 4.0 * tan_half * tan_half * aspect
+
+
 def world_to_raster(cam: Camera, p: torch.Tensor):
     """Project world points (N,3) to continuous pixel coordinates (JAX
     sensor.py:198), by the pinhole model whatever the kind, as there.
@@ -243,9 +250,8 @@ def world_to_raster(cam: Camera, p: torch.Tensor):
     py = (1.0 - sy) * 0.5 * cam.height
     valid = valid & (px >= 0) & (px < cam.width) & (py >= 0) & (py < cam.height)
     cos_t = m.normalize(p_cam)[..., 2]
-    film_area = 4.0 * tan_half * tan_half * aspect
     imp = m.safe_div(torch.ones_like(cos_t),
-                     film_area * torch.clamp_min(cos_t, 1e-6) ** 4)
+                     film_area(cam) * torch.clamp_min(cos_t, 1e-6) ** 4)
     return px, py, valid, imp
 
 

@@ -10,7 +10,13 @@ The policy mirrors the JAX package's, with the card in the TPU's place:
 
 `closest_and_any` is one fused launch on the card's BVH path (`fuses`,
 which also sets the wavefront's default `fuse`) and decomposes into the
-two standard queries everywhere else.
+two standard queries everywhere else, and wherever its shadow rays march
+the occupancy map instead.
+
+`shadow_blocked(..., use_occupancy=True)` answers from the scene's
+occupancy map (ops/occupancy.py), where it has one: approximate, with no
+kernel launch. The integrators pass `cfg.occupancy_shadows` where the
+JAX package does; volpath and the boundary terms keep the exact query.
 
 Every query detaches its inputs (`intersect.search_inputs`), as the JAX
 package stops the gradient of its searches: the results carry no autograd
@@ -52,18 +58,29 @@ def any_hit(scene, o, d, tmax):
     return _isect.occluded_brute(scene, o, d, tmax)
 
 
-def shadow_blocked(scene, o, d, tmax):
-    """Shadow query (exact; the occupancy-map approximation is not ported)."""
+def _marches(scene, use_occupancy: bool) -> bool:
+    return use_occupancy and scene.occupancy is not None
+
+
+def shadow_blocked(scene, o, d, tmax, use_occupancy: bool = False):
+    """Shadow query: the occupancy map's march where asked for and present
+    (approximate), else the exact any-hit."""
+    if _marches(scene, use_occupancy):
+        from . import occupancy
+
+        return occupancy.occluded(scene.occupancy, *_isect.search_inputs(o, d, tmax))
     return any_hit(scene, o, d, tmax)
 
 
-def closest_and_any(scene, o_c, d_c, tmax_c, o_s, d_s, tmax_s):
+def closest_and_any(scene, o_c, d_c, tmax_c, o_s, d_s, tmax_s, use_occupancy: bool = False):
     """Closest hit (o_c, d_c) plus shadow any-hit (o_s, d_s): one launch on
-    the card's BVH path, the two standard calls everywhere else."""
-    if fuses(scene):
+    the card's BVH path, unless the shadow rays march the occupancy map;
+    the two separate queries everywhere else."""
+    if fuses(scene) and not _marches(scene, use_occupancy):
         return bvh_kernel.closest_and_any(scene, scene.bvh, o_c, d_c, tmax_c,
                                           o_s, d_s, tmax_s)
-    return closest_hit(scene, o_c, d_c, tmax_c), shadow_blocked(scene, o_s, d_s, tmax_s)
+    return (closest_hit(scene, o_c, d_c, tmax_c),
+            shadow_blocked(scene, o_s, d_s, tmax_s, use_occupancy))
 
 
 surface_interaction = _isect.surface_interaction

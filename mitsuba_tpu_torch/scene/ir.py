@@ -6,7 +6,9 @@ The scene is a dataclass of tensors. The static fields (`num_triangles`,
 `has_vtx_colors`, `has_wireframe`, `group_probs`) stay plain Python, as they are static pytree fields in the
 JAX package. `bvh` holds the stackless BVH of big meshes (scene/bvh.py;
 None until `bvh.attach`), `envmap` a lat-long environment
-(scene/envmap.py; None for a constant one). Bitmap textures live in one
+(scene/envmap.py; None for a constant one), `occupancy` the occupancy map
+of approximate shadow rays (ops/occupancy.py; None until
+`occupancy.attach`). Bitmap textures live in one
 padded stack with their mip strip (built where `lod_scale` is given);
 vertex colours and wireframe materials are not ported.
 
@@ -234,6 +236,8 @@ class Scene(_Replace):
     vertex_colors: Optional[torch.Tensor] = None  # (V,3) for TEX_VERTEXCOLOR
     # (7,) wireframe: interior rgb, edge rgb, line width in barycentric units
     wire_params: Optional[torch.Tensor] = None
+    # ops/occupancy.OccupancyMap for approximate shadow rays; None = exact
+    occupancy: object = None
 
     # static metadata
     group_probs: tuple = ()
@@ -498,7 +502,7 @@ def uv_densities(vertices, indices, uvs, lod_scale) -> np.ndarray:
 # JAX scene fields the port has no counterpart for yet; a scene that sets
 # one of them cannot be carried across. (`clusters` is the JAX TPU kernel's
 # private table: from_jax drops it and carries `bvh` instead.)
-_UNPORTED = ("cloth", "occupancy")
+_UNPORTED = ("cloth",)
 _OPTIONAL = ("tex_mips", "tri_uv_density", "vertex_colors", "wire_params")
 
 
@@ -520,7 +524,8 @@ def from_jax(jscene, device="cuda") -> Scene:
     table) are dropped, and need a `bvh` beside them. The texture stack,
     its mip strip, an `envmap`, a `medium` (its kind, phase and
     phase_params stay Python values), the `delta_emitters`, `vertex_colors`
-    and `wire_params` come across as they are. Raises for the parts of the
+    and `wire_params` come across as they are, and so does an occupancy
+    map (ops/occupancy.py). Raises for the parts of the
     JAX IR the port does not have yet."""
     for name in _UNPORTED:
         if getattr(jscene, name, None) is not None:
@@ -548,6 +553,9 @@ def from_jax(jscene, device="cuda") -> Scene:
         elif f.name == "medium":
             fields[f.name] = None if jscene.medium is None else _medium_from_jax(
                 jscene.medium, device)
+        elif f.name == "occupancy":
+            om = getattr(jscene, "occupancy", None)
+            fields[f.name] = None if om is None else _occupancy_from_jax(om, device)
         elif f.name == "delta_emitters":
             de = jscene.delta_emitters
             fields[f.name] = None if de is None else DeltaEmitters(
@@ -580,6 +588,13 @@ def _envmap_from_jax(jem, device):
                   cond_cdf=_leaf(jem.cond_cdf, device), pdf_map=_leaf(jem.pdf_map, device),
                   scale=_leaf(jem.scale, device),
                   spectral=None if spectral is None else _leaf(spectral, device))
+
+
+def _occupancy_from_jax(jom, device):
+    from ..ops.occupancy import OccupancyMap
+
+    return OccupancyMap(grid=_leaf(jom.grid, device), box_min=_leaf(jom.box_min, device),
+                        inv_extent=_leaf(jom.inv_extent, device), res=int(jom.res))
 
 
 def _medium_from_jax(jmed, device):

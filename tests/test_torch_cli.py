@@ -267,7 +267,7 @@ def test_debug_fp_names_first_bad_pixel(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,roadmap", [
-    (["--integrator", "bdpt"], "A12"), (["--integrator", "ptracer"], "A12"),
+    (["--integrator", "sppm"], "A12"), (["--integrator", "pssmlt"], "A12"),
     (["--integrator", "spectral"], "A12"), (["--mesh", "2,1"], "A13"),
     (["--distributed", "localhost:1234,2,0"], "A13")])
 def test_unported_options_exit(tmp_path, argv, roadmap):
@@ -275,6 +275,50 @@ def test_unported_options_exit(tmp_path, argv, roadmap):
     with pytest.raises(SystemExit, match=roadmap):
         run(p, "-o", tmp_path / "o.exr", "-q", *argv)
     assert not (tmp_path / "o.exr").exists()
+
+
+@pytest.mark.parametrize("name", ["photonmapper", "ppm", "mlt", "erpt", "irrcache", "bre",
+                                  "spectral_path"])
+def test_unported_integrators_exit(tmp_path, name):
+    """Every integrator name of the JAX CLI the port lacks exits naming A12."""
+    with pytest.raises(SystemExit, match="A12"):
+        cli.resolve_integrator(name)
+
+
+@pytest.mark.parametrize("name,module,fn", [
+    ("bdpt", "bdpt", "li"), ("mybdpt", "bdpt", "li"), ("mybdpt2", "bdpt", "li"),
+    ("lvcbpt", "lvcbpt", "li"), ("vpl", "vpl", "li"), ("depth", "aov", "li_depth"),
+    ("normal", "aov", "li_normal"), ("field", "aov", "li_normal"), ("ao", "aov", "li_ao"),
+    ("motion", "aov", "li_motion")])
+def test_bidir_and_aov_integrators(tmp_path, name, module, fn):
+    """--integrator with each name of the bidirectional slice: the image
+    equals common.render of the loaded scene with that Li function."""
+    import importlib
+
+    li = getattr(importlib.import_module(f"mitsuba_tpu_torch.integrators.{module}"), fn)
+    assert cli.resolve_integrator(name) is li
+    p = write_scene(tmp_path)
+    assert run(p, "-o", tmp_path / "o.exr", "-q", "--integrator", name) == 0
+    np.testing.assert_array_equal(image.read_exr(tmp_path / "o.exr"), render_loaded(p, li))
+
+
+def test_ptracer_and_multichannel_renderers(tmp_path):
+    """ptracer renders the film itself; multichannel writes the
+    radiance to the output and each other channel beside it as
+    <stem>_<channel>.exr."""
+    from mitsuba_tpu_torch.integrators import multichannel, ptracer
+
+    p = write_scene(tmp_path)
+    scene, cam, cfg, _ = xml.load_xml(p, device="cpu")
+    assert run(p, "-o", tmp_path / "pt.exr", "-q", "--integrator", "ptracer") == 0
+    np.testing.assert_array_equal(image.read_exr(tmp_path / "pt.exr"),
+                                  ptracer.render(scene, cam, cfg).numpy())
+    assert run(p, "-o", tmp_path / "mc.exr", "-q", "--integrator", "multichannel") == 0
+    want = multichannel.render(scene, cam, cfg)
+    assert sorted(want) == ["albedo", "depth", "normal", "radiance"]
+    for ch, img in want.items():
+        out = tmp_path / ("mc.exr" if ch == "radiance" else f"mc_{ch}.exr")
+        np.testing.assert_array_equal(image.read_exr(out), img.numpy())
 
 
 def test_no_gpu_without_cpu_flag_exits(tmp_path, monkeypatch):

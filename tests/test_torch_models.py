@@ -77,8 +77,8 @@ def test_from_jax_round_trip(cornell):
 def test_from_jax_refuses_unported_fields(cornell):
     """A field the port has no counterpart for raises, and so do the TPU
     kernel's cluster tables without the BVH the port walks instead."""
-    jscene = cornell[0].replace(occupancy=object())
-    with pytest.raises(NotImplementedError, match="occupancy"):
+    jscene = cornell[0].replace(cloth=object())
+    with pytest.raises(NotImplementedError, match="cloth"):
         tir.from_jax(jscene, device="cpu")
     jscene = cornell[0].replace(clusters=object())
     with pytest.raises(NotImplementedError, match="clusters without a bvh"):
