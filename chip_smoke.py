@@ -65,10 +65,20 @@ through B2; the CLI's lvcbpt and ptracer on [cli_cornell]'s scene files.
 Each mean is held to its JAX test's bar against path.li's render of the
 same scene, each cell counts its kernel's launches from zero and reruns
 one launch per entry and batch size through the twin.
+Then the photon-mapping family (the [photon] group, PHOTON_PHASES), each
+cell counted and twin checked the same way: sppm.render on the Cornell box
+at 256x256 (16 passes x 2^17 photons, depth 8) with its seconds a pass and
+a pass's camera, photon, build and query shares, the CPPM constant and
+linear radius strategies (r2 after each pass), the two-map photon mapper
+and caustic_box's caustic and indirect deposits, bre in the fog against
+volpath.li, the irradiance cache against path.li and direct.li, spectral.li
+on the gray box per channel, render_adaptive's spp map, SPPM on the
+10,372-triangle mesh through B2, and the CLI's sppm and spectral on
+[cli_cornell]'s scene files.
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The line [total] gives the whole script's seconds and those of
-the materials, the media, the front-end, the CLI and the bidirectional
-phases.
+the materials, the media, the front-end, the CLI, the bidirectional and
+the photon phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -2774,6 +2784,7 @@ BIDIR_DEPTH = 8
 BIDIR_REF_SPP = 64
 BIDIR_PROFILE_SPP = 4
 AOV_SPP = 4
+CLI_BIDIR_SPP = 16          # -s 16 on [cli_cornell]'s 64-spp files
 # the JAX tests' bars on |mean - path's mean| / path's mean
 BDPT_RTOL = 0.05            # tests/test_bdpt.py:20
 LIGHT_IMAGE_RTOL = 0.06     # tests/test_bdpt.py:57
@@ -2811,15 +2822,17 @@ def path_mean(scene, cam, depth, dev):
 
 
 def bidir_cell(name, make, cfg, dev, scene, cam, ref=None, rtol=None, kernel="b1",
-               need=("closest", "any_hit"), samples=None, **fields):
-    """make(cfg) counted: render_s, samples/s (pixels x spp, or `samples`),
+               need=("closest", "any_hit"), samples=None, scopes=None, **fields):
+    """make(cfg) counted: render_s, samples/s (pixels x spp, or `samples`,
+    a count or a function called after the render that gives it),
     step_peak_gb (the device's peak from the render's start less what was
     allocated there), the kernel's launches (zeroed just before, read just
     after; every entry in `need` launched, the other kernel and the plain
     twins never) with the first launch per entry and batch size rerun
     through the twin (check_kept); the image finite, and its mean within
     `rtol` of `ref` where given. Then the device busy share of make() at
-    BIDIR_PROFILE_SPP (profile_call). Returns (image, {path: launches})."""
+    BIDIR_PROFILE_SPP (profile_call, with its `scopes`). Returns (image,
+    {path: launches})."""
     import dataclasses
 
     import torch
@@ -2844,7 +2857,7 @@ def bidir_cell(name, make, cfg, dev, scene, cam, ref=None, rtol=None, kernel="b1
     checked = check_kept(mod, kept, entries=[twin_entry[k] for k in need])
     del kept
     mean = float(img.mean())
-    n = samples or cam.width * cam.height * cfg.spp
+    n = (samples() if callable(samples) else samples) or cam.width * cam.height * cfg.spp
     line = dict(resolution=f"{cam.width}x{cam.height}", spp=cfg.spp, max_depth=cfg.max_depth,
                 tris=scene.num_triangles, **fields, render_s=round(render_s, 4),
                 samples_per_s=round(n / render_s), step_peak_gb=round(step_peak_gb, 3),
@@ -2861,7 +2874,7 @@ def bidir_cell(name, make, cfg, dev, scene, cam, ref=None, rtol=None, kernel="b1
     if ref is not None and not abs(mean - ref) <= rtol * ref:
         raise AssertionError(f"{name}: mean {mean} against path's {ref}, bar {rtol}")
     small = dataclasses.replace(cfg, spp=min(cfg.spp, BIDIR_PROFILE_SPP))
-    profile_call(name, lambda: make(small), dev, resolution=f"{cam.width}x{cam.height}",
+    profile_call(name, lambda: make(small), dev, scopes, resolution=f"{cam.width}x{cam.height}",
                  spp=small.spp)
     return img, path_launches(name, launches, "bvh" if kernel == "b2" else "brute")
 
@@ -3075,7 +3088,8 @@ def phase_bidir_mesh(dev):
 
 def phase_cli_bidir(dev):
     """[cli_bidir]: [cli_cornell]'s scene files with --integrator lvcbpt and
-    with --integrator ptracer, each by the real command (wall time) and by
+    with --integrator ptracer at -s CLI_BIDIR_SPP, each by the real command
+    (wall time) and by
     cli.main in process (B1's launches counted and twin checked); each EXR
     against the in-process render of the loaded scene: lvcbpt at the
     goldens' bar (check_golden), ptracer at C31's per-pixel bar (its
@@ -3094,10 +3108,11 @@ def phase_cli_bidir(dev):
         tmp = Path(tmp)
         xml_path = cli_cornell_files(tmp, dev)[0]
         loaded, lcam, lcfg, _ = xml.load_xml(xml_path, device=dev)
+        lcfg = dataclasses.replace(lcfg, spp=CLI_BIDIR_SPP)
         for name, make in (("lvcbpt", lambda c: common.render(loaded, lcam, lvcbpt.li, c)),
                            ("ptracer", lambda c: ptracer.render(loaded, lcam, c))):
             want = make(lcfg).cpu().numpy()
-            args = ["--integrator", name]
+            args = ["--integrator", name, "-s", str(CLI_BIDIR_SPP)]
             wall = run_cli_subprocess(xml_path, tmp / f"sub_{name}.exr", args)
             launches, checked, times = run_cli_counted(
                 bk, [xml_path, "-o", tmp / f"in_{name}.exr", *args], dev)
@@ -3126,6 +3141,363 @@ def phase_cli_bidir(dev):
 
 BIDIR_PHASES = (phase_bdpt, phase_lvcbpt, phase_ptracer_vpl, phase_occupancy, phase_aov,
                 phase_bidir_mesh, phase_cli_bidir)
+
+
+# ---------------------------------------------------------------------------
+# the photon-mapping family (the [photon] group)
+# ---------------------------------------------------------------------------
+
+PHOTON_WIDTH = 256
+SPPM_PASSES = 16                # the JAX defaults: 16 passes x 2^17 photons
+SPPM_PHOTONS = 1 << 17
+SPPM_DIRECT_PASSES = 2          # the JAX package's gather (C37): printed only
+CPPM_PASSES = 4
+PM_PHOTONS = 1 << 18
+PM_PASSES = 4
+BRE_PATHS = 1 << 16
+BRE_STEPS = 24
+IRR_POINTS, IRR_HEMI, IRR_DEPTH, IRR_SPP = 4096, 64, 3, 16
+SPECTRAL_SPP = 16
+ADAPTIVE_BASE, ADAPTIVE_BATCH, ADAPTIVE_MAX = 8, 8, 64
+PHOTON_MESH_PASSES = 4
+PHOTON_CLI_SPP = 16             # -s 16: sppm 4 passes, spectral 16 spp
+# the JAX tests' bars
+SPPM_RTOL = 0.15                # tests/test_sppm.py:61
+SPPM_MEDIAN_GAP = 0.3           # tests/test_sppm.py:62-64, pixels brighter than 0.1
+PM_RTOL = 0.20                  # tests/test_photonmapper.py:21
+PM_MIN_DEPOSITS = 50            # tests/test_photonmapper.py:35-36
+BRE_RANGE = (0.1, 1.5)          # tests/test_bre.py:22-23, x volpath's mean
+BRE_FOG = ([0.6] * 3, [0.05] * 3)
+IRR_RTOL, IRR_OVER_DIRECT = 0.05, 1.05      # tests/test_irrcache.py:24-28
+SPECTRAL_RTOL = 0.05            # tests/test_spectral.py:62, per channel
+ADAPTIVE_RTOL = 0.08            # tests/test_more_integrators.py:53
+ADAPTIVE_MAX_ERROR = 0.02       # tests/test_more_integrators.py:46
+R2_RTOL = 1e-6
+
+
+def ref_image(scene, cam, li, depth):
+    """common.render(li) at BIDIR_REF_SPP, the given depth, seed 0: the
+    reference image of the photon group's checks."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common
+
+    with torch.no_grad():
+        return common.render(scene, cam, li, _bidir_cfg(BIDIR_REF_SPP, depth))
+
+
+def sppm_scopes():
+    """The scopes of an SPPM pass (profile_call's and pass_split's): the
+    camera pass, the photon pass, the hash grid's build and its query (the
+    gather with its BSDF evaluations)."""
+    from mitsuba_tpu_torch.integrators import sppm
+    from mitsuba_tpu_torch.ops import hashgrid
+
+    return {"camera": (sppm, "_camera_pass"), "photon": (sppm, "_photon_pass"),
+            "build": (hashgrid, "build"), "query": (hashgrid, "query_sum")}
+
+
+def pass_split(make, dev):
+    """One call of make() with each scope of sppm_scopes ended by a
+    synchronise: ({scope: wall seconds}, the call's wall seconds)."""
+    import torch
+
+    spent = {}
+
+    def clocked(label, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize(dev)
+            spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for label, (mod, fn) in sppm_scopes().items():
+            stack.enter_context(mock.patch.object(mod, fn, clocked(label, getattr(mod, fn))))
+        _, wall = timed(make, dev)
+    return spent, wall
+
+
+def sppm_maker(scene, cam, runs, **kw):
+    """make(cfg) of a bidir_cell: sppm.render with cfg.spp passes (one camera
+    sample a pixel a pass); each call appends its statistics to `runs`."""
+    from mitsuba_tpu_torch.integrators import sppm
+
+    def make(cfg):
+        img, st = sppm.render(scene, cam, cfg, n_passes=cfg.spp, **kw)
+        runs.append(st)
+        return img
+    return make
+
+
+def check_sppm(name, img, ref, st, hold_gap=True):
+    """SPPM's bars against path.li's image `ref`: non-negative and, with
+    hold_gap, the median relative gap over pixels brighter than 0.1 under
+    0.3. Prints the render's truncated counts (st, its statistics)."""
+    import torch
+
+    lit = ref.mean(-1) > 0.1
+    gap = float(torch.median(((img.mean(-1) - ref.mean(-1)).abs() / ref.mean(-1))[lit]))
+    say(f"{name}_check", truncated=list(st["truncated"]), median_gap=round(gap, 5),
+        bar=SPPM_MEDIAN_GAP if hold_gap else None, lit_pixels=int(lit.sum()),
+        min=float(img.min()))
+    if not (float(img.min()) >= 0 and (gap < SPPM_MEDIAN_GAP or not hold_gap)):
+        raise AssertionError(f"{name}: min {float(img.min())}, median gap {gap}")
+
+
+def phase_sppm(dev):
+    """[sppm]: sppm.render on the Cornell box at 256x256, RADIUS_SPPM, 16
+    passes x 2^17 photons, depth 8: its mean within 15% of path.li's (64
+    spp), the median relative gap over pixels brighter than 0.1 under 0.3,
+    the truncated counts; [sppm_pass]: seconds a pass and one pass's wall
+    shares of the camera pass, the photon pass, the grid's build and the
+    query (the device shares are in its [profile] line);
+    [sppm_direct_photons]: the JAX package's gather, first-hit photons
+    included (ROADMAP C37), SPPM_DIRECT_PASSES passes, finite, its mean
+    beside path's, not held to it. [cppm_constant],
+    [cppm_linear]: 4 passes each, finite and non-negative, r2 after pass n
+    equal to r2_0 (constant) and to r2_0 / (n + 1) (linear). Returns B1's
+    launches by path."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import path, sppm
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = PHOTON_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    ref = ref_image(scene, cam, path.li, BIDIR_DEPTH)
+    ref_mean = float(ref.mean())
+    runs = []
+    img, out = bidir_cell("sppm", sppm_maker(scene, cam, runs, photons_per_pass=SPPM_PHOTONS),
+                          _bidir_cfg(SPPM_PASSES), dev, scene, cam, ref_mean, SPPM_RTOL,
+                          scopes=sppm_scopes(), passes=SPPM_PASSES,
+                          photons_per_pass=SPPM_PHOTONS)
+    check_sppm("sppm", img, ref, runs[0])
+    spent, wall = pass_split(lambda: sppm.render(scene, cam, _bidir_cfg(), n_passes=1,
+                                                 photons_per_pass=SPPM_PHOTONS), dev)
+    say("sppm_pass", pass_wall_s=round(wall, 4), wall_share={
+        k: round(v / wall, 4) for k, v in spent.items()},
+        peak_gb=round(torch.cuda.max_memory_allocated(dev) / 1e9, 3))
+    # the JAX package's gather, first hits included (C37): printed, not held
+    (jimg, jst), render_s = timed(lambda: sppm.render(
+        scene, cam, _bidir_cfg(), n_passes=SPPM_DIRECT_PASSES, photons_per_pass=SPPM_PHOTONS,
+        direct_photons=True), dev)
+    say("sppm_direct_photons", passes=SPPM_DIRECT_PASSES, render_s=round(render_s, 4),
+        mean_radiance=round(float(jimg.mean()), 6),
+        rel_to_path=round(float(jimg.mean()) / ref_mean - 1.0, 5),
+        truncated=list(jst["truncated"]))
+    require_finite("sppm_direct_photons", jimg, tuple(img.shape))
+
+    r2_0 = np.float32((sppm.scene_extent(scene) * 5.0 / w) ** 2)
+    for name, strategy in (("cppm_constant", sppm.RADIUS_CONSTANT),
+                           ("cppm_linear", sppm.RADIUS_LINEAR)):
+        runs = []
+        img, launches = bidir_cell(
+            name, sppm_maker(scene, cam, runs, photons_per_pass=SPPM_PHOTONS,
+                             strategy=strategy),
+            _bidir_cfg(CPPM_PASSES), dev, scene, cam, passes=CPPM_PASSES,
+            path_mean_for_comparison=round(ref_mean, 6))
+        out.update(launches)
+        want = r2_0 / (1.0 if strategy == sppm.RADIUS_CONSTANT else CPPM_PASSES + 1.0)
+        r2_off = float(((runs[0]["r2"] - want).abs() / want).max())
+        say(f"{name}_check", r2_0=float(r2_0), r2_expected=float(want),
+            r2_max_rel_diff=r2_off, bar=R2_RTOL, min=float(img.min()))
+        if not (float(img.min()) >= 0 and r2_off <= R2_RTOL):
+            raise AssertionError(f"{name}: min {float(img.min())}, r2 off by {r2_off}")
+    return out
+
+
+def phase_photonmapper(dev):
+    """[photonmapper]: photonmapper.render on the Cornell box at 256x256,
+    2^18 photons a pass, 4 passes, depth 8: within 20% of path.li's mean.
+    [photon_tags]: caustic_box's photon pass (2^18 photons, depth 8) holds
+    more than 50 caustic and 50 indirect deposits. Returns B1's launches by
+    path."""
+    from mitsuba_tpu_torch.integrators import photonmapper, sppm
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = PHOTON_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    out = dict(bidir_cell(
+        "photonmapper",
+        lambda c: photonmapper.render(scene, cam, c, n_photons=PM_PHOTONS, n_passes=c.spp),
+        _bidir_cfg(PM_PASSES), dev, scene, cam, path_mean(scene, cam, BIDIR_DEPTH, dev),
+        PM_RTOL, passes=PM_PASSES, photons=PM_PHOTONS)[1])
+    caustic_scene, _ = builtin.caustic_box(BIDIR_SMALL, BIDIR_SMALL, device=dev)
+    _, _, _, valid, depth, prev = sppm._photon_pass(caustic_scene, _bidir_cfg(), 0, PM_PHOTONS,
+                                                    BIDIR_DEPTH, with_tags=True)
+    caustic = int((valid & prev & (depth >= 1)).sum())
+    indirect = int((valid & ~prev & (depth >= 1)).sum())
+    say("photon_tags", scene="caustic_box", photons=PM_PHOTONS, caustic_deposits=caustic,
+        indirect_deposits=indirect, bar=PM_MIN_DEPOSITS)
+    if min(caustic, indirect) <= PM_MIN_DEPOSITS:
+        raise AssertionError(f"caustic_box deposits: caustic {caustic}, indirect {indirect}")
+    return out
+
+
+def phase_bre(dev):
+    """[bre]: bre.render on the Cornell box in tests/test_bre.py's fog
+    (sigma_s 0.6, sigma_a 0.05) at 256x256, 2^16 light paths, 24 steps: its
+    mean between 0.1x and 1.5x volpath.li's (64 spp, depth 8). bre casts no
+    shadow ray: only B1's closest-hit entry is needed. Returns B1's
+    launches by path."""
+    from mitsuba_tpu_torch.integrators import bre, volpath
+    from mitsuba_tpu_torch.models import medium
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = PHOTON_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    scene = scene.replace(medium=medium.make_homogeneous(*BRE_FOG, g=0.0, device=dev))
+    ref = float(ref_image(scene, cam, volpath.li, BIDIR_DEPTH).mean())
+    img, out = bidir_cell(
+        "bre", lambda c: bre.render(scene, cam, c, n_paths=BRE_PATHS, steps=BRE_STEPS),
+        _bidir_cfg(1), dev, scene, cam, need=("closest",), paths=BRE_PATHS, steps=BRE_STEPS)
+    ratio = float(img.mean()) / ref
+    say("bre_check", volpath_mean=round(ref, 6), ratio_to_volpath=round(ratio, 5),
+        bar=BRE_RANGE)
+    if not BRE_RANGE[0] < ratio < BRE_RANGE[1]:
+        raise AssertionError(f"bre: mean {float(img.mean())} = {ratio} x volpath's {ref}")
+    return out
+
+
+def phase_irrcache(dev):
+    """[irrcache]: irrcache.render on the Cornell box at 256x256 x 16 spp,
+    depth 3, a cache of 4,096 points x 64 hemisphere rays: within 5% of
+    path.li's mean and above 1.05x direct.li's (both 64 spp, depth 3).
+    Returns B1's launches by path."""
+    from mitsuba_tpu_torch.integrators import direct, irrcache, path
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = PHOTON_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    direct_mean = float(ref_image(scene, cam, direct.li, IRR_DEPTH).mean())
+    img, out = bidir_cell(
+        "irrcache", lambda c: irrcache.render(scene, cam, c, n_points=IRR_POINTS,
+                                              n_hemi=IRR_HEMI),
+        _bidir_cfg(IRR_SPP, IRR_DEPTH), dev, scene, cam,
+        float(ref_image(scene, cam, path.li, IRR_DEPTH).mean()), IRR_RTOL,
+        points=IRR_POINTS, hemisphere_rays=IRR_HEMI)
+    ratio = float(img.mean()) / direct_mean
+    say("irrcache_check", direct_mean=round(direct_mean, 6), ratio_to_direct=round(ratio, 5),
+        bar=IRR_OVER_DIRECT)
+    if not ratio > IRR_OVER_DIRECT:
+        raise AssertionError(f"irrcache: {ratio} x direct's mean")
+    return out
+
+
+def phase_spectral_adaptive(dev):
+    """[spectral]: spectral.li through common.render on the gray Cornell
+    box (every reflectance 0.6) at 256x256 x 16 spp, depth 8: each channel
+    mean within 5% of path.li's (64 spp). [adaptive]: render_adaptive with
+    path.li on the Cornell box at 256x256, base 8, batch 8, max 64 spp: the
+    spp map adapts and the mean lies within 8% of path.li's. Returns B1's
+    launches by path."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import path, spectral
+    from mitsuba_tpu_torch.scene import builtin
+    from mitsuba_tpu_torch.utils import adaptive
+
+    w = PHOTON_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    gray = scene.replace(materials=scene.materials.replace(
+        reflectance=torch.full_like(scene.materials.reflectance, 0.6)))
+    want = ref_image(gray, cam, path.li, BIDIR_DEPTH).mean((0, 1))
+    img, out = bidir_cell("spectral", li_render(gray, cam, spectral.li),
+                          _bidir_cfg(SPECTRAL_SPP), dev, gray, cam, fixture="gray cornell_box")
+    got = img.mean((0, 1))
+    off = float(((got - want).abs().max() / want.mean()))
+    say("spectral_check", channel_means=[round(float(x), 6) for x in got],
+        path_channel_means=[round(float(x), 6) for x in want], max_rel_gap=round(off, 5),
+        bar=SPECTRAL_RTOL)
+    if not off < SPECTRAL_RTOL:
+        raise AssertionError(f"spectral: channel means {got.tolist()} against {want.tolist()}")
+
+    spp_maps = []
+
+    def make(cfg):
+        img, spp_map = adaptive.render_adaptive(
+            scene, cam, path.li, cfg, base_spp=min(cfg.spp, ADAPTIVE_BASE),
+            batch_spp=ADAPTIVE_BATCH, max_spp=cfg.spp, max_error=ADAPTIVE_MAX_ERROR)
+        spp_maps.append(spp_map)
+        return img
+
+    img, launches = bidir_cell("adaptive", make, _bidir_cfg(ADAPTIVE_MAX), dev, scene, cam,
+                               path_mean(scene, cam, BIDIR_DEPTH, dev), ADAPTIVE_RTOL,
+                               samples=lambda: int(spp_maps[0].sum()),
+                               base_spp=ADAPTIVE_BASE, batch_spp=ADAPTIVE_BATCH)
+    out.update(launches)
+    m = spp_maps[0]
+    say("adaptive_check", spp_min=float(m.min()), spp_max=float(m.max()),
+        spp_mean=round(float(m.mean()), 3))
+    if not (float(m.max()) > float(m.min()) and float(m.min()) >= ADAPTIVE_BASE):
+        raise AssertionError(f"adaptive: the spp map did not adapt ({float(m.min())}, "
+                             f"{float(m.max())})")
+    return out
+
+
+def phase_photon_mesh(dev):
+    """[photon_mesh_sppm]: sppm.render on sphere_shadow (10,372 triangles,
+    BVH attached) at 128x128, 4 passes x 2^17 photons, depth 8: every
+    search on B2 (none on B1), every kept launch equal to the walk's; the
+    mean within 15% of path.li's (the median gap printed beside it). Returns
+    B2's launches by path."""
+    from mitsuba_tpu_torch.integrators import path
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = BIDIR_SMALL
+    scene, cam, _ = builtin.sphere_shadow(width=w, height=w, attach_bvh=True, device=dev)
+    ref = ref_image(scene, cam, path.li, BIDIR_DEPTH)
+    runs = []
+    img, out = bidir_cell("photon_mesh_sppm",
+                          sppm_maker(scene, cam, runs, photons_per_pass=SPPM_PHOTONS),
+                          _bidir_cfg(PHOTON_MESH_PASSES), dev, scene, cam, float(ref.mean()),
+                          SPPM_RTOL, kernel="b2", passes=PHOTON_MESH_PASSES)
+    check_sppm("photon_mesh_sppm", img, ref, runs[0], hold_gap=False)
+    return out
+
+
+def phase_cli_photon(dev):
+    """[cli_sppm], [cli_spectral]: [cli_cornell]'s scene files with -s 16 and
+    --integrator sppm (4 passes of 2^17 photons) or spectral (16 spp), by
+    cli.main in process (B1's launches counted and twin checked); each EXR
+    against the in-process render of the loaded scene at the goldens' bar
+    (check_golden). Returns B1's launches by path."""
+    import dataclasses
+    import tempfile
+
+    from mitsuba_tpu_torch.integrators import common, spectral, sppm
+    from mitsuba_tpu_torch.io import image
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import xml
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        xml_path = cli_cornell_files(tmp, dev)[0]
+        loaded, lcam, lcfg, _ = xml.load_xml(xml_path, device=dev)
+        lcfg = dataclasses.replace(lcfg, spp=PHOTON_CLI_SPP)
+        for name, make in (
+                ("sppm", lambda c: sppm.render(loaded, lcam, c, n_passes=c.spp // 4)[0]),
+                ("spectral", lambda c: common.render(loaded, lcam, spectral.li, c))):
+            want = make(lcfg).cpu().numpy()
+            launches, checked, times = run_cli_counted(
+                bk, [xml_path, "-o", tmp / f"in_{name}.exr", "-s", PHOTON_CLI_SPP,
+                     "--integrator", name], dev)
+            got = image.read_exr(tmp / f"in_{name}.exr")
+            flips, max_diff = check_golden(got, want)
+            say(f"cli_{name}", resolution=f"{lcam.width}x{lcam.height}", spp=lcfg.spp, **times,
+                b1_launches=launches, twin_checked_rays=checked, twin_mismatches=0,
+                pixels_off=flips, max_abs_diff=max_diff, mean_radiance=round(float(got.mean()), 6))
+            out.update(path_launches(f"cli_{name}", launches))
+    return out
+
+
+PHOTON_PHASES = (phase_sppm, phase_photonmapper, phase_bre, phase_irrcache,
+                 phase_spectral_adaptive, phase_photon_mesh, phase_cli_photon)
 
 
 def main(argv=None) -> int:
@@ -3214,13 +3586,20 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths.update(phase(dev))
         bidir_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
+    t_photon = time.perf_counter()
+    photon_s = {}
+    for phase in PHOTON_PHASES:
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        photon_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
     t_end = time.perf_counter()
     say("total", seconds=round(t_end - t_start, 3),
         materials_seconds=round(t_media - t_materials, 3),
         media_seconds=round(t_frontend - t_media, 3), media_phase_seconds=media_s,
         frontend_seconds=round(t_cli - t_frontend, 3), frontend_phase_seconds=frontend_s,
         cli_seconds=round(t_bidir - t_cli, 3), cli_phase_seconds=cli_s,
-        bidir_seconds=round(t_end - t_bidir, 3), bidir_phase_seconds=bidir_s)
+        bidir_seconds=round(t_photon - t_bidir, 3), bidir_phase_seconds=bidir_s,
+        photon_seconds=round(t_end - t_photon, 3), photon_phase_seconds=photon_s)
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

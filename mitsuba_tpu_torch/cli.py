@@ -31,11 +31,13 @@ _LI_NAMES = {"path": ("path", "li"), "mypath": ("path", "li"), "mypath2": ("path
              "normal": ("aov", "li_normal"), "field": ("aov", "li_normal"),
              "ao": ("aov", "li_ao"), "motion": ("aov", "li_motion"), "bdpt": ("bdpt", "li"),
              "mybdpt": ("bdpt", "li"), "mybdpt2": ("bdpt", "li"), "lvcbpt": ("lvcbpt", "li"),
-             "vpl": ("vpl", "li")}
+             "vpl": ("vpl", "li"), "spectral": ("spectral", "li"),
+             "spectral_path": ("spectral", "li")}
 # the integrators that render the whole film themselves: resolve_integrator
-# returns the name. Every other name of the JAX CLI (spectral, sppm, ppm,
-# photonmapper, pssmlt, mlt, erpt, irrcache, bre) waits for ROADMAP A12.
-_FILM_RENDERERS = ("ptracer", "multichannel")
+# returns the name. The other names of the JAX CLI (pssmlt, mlt, erpt) wait
+# for ROADMAP A12.
+_FILM_RENDERERS = ("ptracer", "multichannel", "sppm", "ppm", "photonmapper", "bre",
+                   "irrcache")
 
 
 def build_argparser():
@@ -56,7 +58,8 @@ def build_argparser():
                          "(repeatable; mitsuba -a parity)")
     ap.add_argument("--integrator", default=None,
                     help="override integrator (path, direct, volpath, bdpt, lvcbpt, "
-                         "vpl, ptracer, multichannel, depth, normal, ao, motion, ...)")
+                         "vpl, ptracer, multichannel, sppm, ppm, photonmapper, bre, "
+                         "irrcache, spectral, depth, normal, ao, motion, ...)")
     ap.add_argument("--mesh", default=None, metavar="DP,SP",
                     help="multi-device rendering: not ported yet (ROADMAP A13)")
     ap.add_argument("--distributed", default=None, metavar="HOST:PORT,N,I",
@@ -94,8 +97,8 @@ def build_argparser():
 def resolve_integrator(name: str):
     """The port's Li function for an integrator name, or the name itself for
     the integrators that render the whole film themselves (ptracer,
-    multichannel); exits naming ROADMAP A12 for every integrator not
-    ported yet."""
+    multichannel, the photon mappers, bre, irrcache); exits naming ROADMAP
+    A12 for every integrator not ported yet."""
     if name in _FILM_RENDERERS:
         return name
     if name not in _LI_NAMES:
@@ -261,10 +264,8 @@ def _render_one(args):
         if not args.quiet:
             st.print_stats()
         return 0
-    if li_fn == "ptracer":
-        from .integrators import ptracer
-
-        img = ptracer.render(scene, cam, cfg).cpu().numpy()
+    if li_fn in _FILM_RENDERERS:
+        img = render_film(li_fn, scene, cam, cfg).cpu().numpy()
     elif args.time_bins > 1:
         # time-binned object motion blur (deformable.cpp / track.h
         # analog): each bin re-loads the scene at a stratified shutter time
@@ -320,6 +321,30 @@ def _render_one(args):
         # Statistics::printStats at exit (mitsuba.cpp:408)
         st.print_stats()
     return 0
+
+
+def render_film(name, scene, cam, cfg):
+    """The image of an integrator that renders the whole film itself, with
+    the JAX CLI's pass and photon counts from cfg.spp."""
+    if name == "ptracer":
+        from .integrators import ptracer
+
+        return ptracer.render(scene, cam, cfg)
+    if name == "photonmapper":
+        from .integrators import photonmapper
+
+        return photonmapper.render(scene, cam, cfg, n_passes=max(min(cfg.spp // 4, 16), 1))
+    if name in ("sppm", "ppm"):
+        from .integrators import sppm
+
+        return sppm.render(scene, cam, cfg, n_passes=max(cfg.spp // 4, 1))[0]
+    if name == "bre":
+        from .integrators import bre
+
+        return bre.render(scene, cam, cfg)
+    from .integrators import irrcache
+
+    return irrcache.render(scene, cam, cfg)
 
 
 def _record_times(st, load_s, bvh_s, render_s):

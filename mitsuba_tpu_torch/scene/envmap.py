@@ -29,8 +29,9 @@ class EnvMap(_Replace):
     cond_cdf: torch.Tensor   # (H, W) inclusive conditional CDF per row
     pdf_map: torch.Tensor    # (H, W) discrete selection probability (sums to 1)
     scale: torch.Tensor      # () overall scale
-    # (H, W, B) spectral radiance for the spectral integrator, which is not
-    # ported (eval_radiance_spectral raises)
+    # optional (H, W, B) spectral radiance at the Hosek band wavelengths
+    # (SPEC_BANDS_MIN + k SPEC_BANDS_STEP nm), read by the hero-wavelength
+    # spectral integrator in place of RGB upsampling
     spectral: Optional[torch.Tensor] = None
 
 
@@ -57,15 +58,49 @@ def build_envmap(image: np.ndarray, scale: float = 1.0, device="cuda") -> EnvMap
                   pdf_map=t(pdf_map), scale=t(scale))
 
 
-def attach_envmap(scene, image: np.ndarray, scale: float = 1.0):
+def attach_envmap(scene, image: np.ndarray, scale: float = 1.0,
+                  spectral: np.ndarray | None = None):
     """The scene lit by the lat-long map `image` (built on the scene's
-    device)."""
-    return scene.replace(envmap=build_envmap(image, scale, scene.device), has_env=True)
+    device), with its (H, W, B) band stack `spectral` where given."""
+    em = build_envmap(image, scale, scene.device)
+    if spectral is not None:
+        em = em.replace(spectral=torch.as_tensor(np.asarray(spectral, np.float32),
+                                                 device=scene.device))
+    return scene.replace(envmap=em, has_env=True)
 
 
-def eval_radiance_spectral(em: EnvMap, d, lam):
-    raise NotImplementedError("envmap.eval_radiance_spectral is not ported: it belongs "
-                              "to the spectral integrator (ROADMAP A12)")
+# the Hosek band wavelengths of EnvMap.spectral (320..720 nm, step 40)
+SPEC_BANDS_MIN = 320.0
+SPEC_BANDS_STEP = 40.0
+
+
+def eval_radiance_spectral(em: EnvMap, d: torch.Tensor, lam: torch.Tensor) -> torch.Tensor:
+    """Spectral radiance along -d: bilinear in (u, v), linear across the band
+    axis at the wavelengths lam (..., K) -> (..., K)."""
+    spec = em.spectral                                  # (H, W, B)
+    h, w, nb = spec.shape
+    u, v = dir_to_uv(d)
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    xi = x0.to(torch.int32)
+    yi = y0.to(torch.int32)
+    # floor mod, as jnp.mod: a negative column wraps to the right edge
+    x0i = torch.remainder(xi, w)
+    x1i = torch.remainder(xi + 1, w)
+    y0i = torch.clamp(yi, 0, h - 1)
+    y1i = torch.clamp(yi + 1, 0, h - 1)
+    bands = (spec[y0i, x0i] * (1 - fx) * (1 - fy) + spec[y0i, x1i] * fx * (1 - fy)
+             + spec[y1i, x0i] * (1 - fx) * fy + spec[y1i, x1i] * fx * fy)   # (..., B)
+    pos = (lam - SPEC_BANDS_MIN) / SPEC_BANDS_STEP      # (..., K)
+    lo = torch.clamp(torch.floor(pos).to(torch.int64), 0, nb - 1)
+    hi = torch.clamp_max(lo + 1, nb - 1)
+    f = torch.clamp(pos - lo, 0.0, 1.0)
+    out = torch.gather(bands, -1, lo) * (1.0 - f) + torch.gather(bands, -1, hi) * f
+    return out * em.scale
 
 
 def dir_to_uv(d: torch.Tensor):

@@ -267,8 +267,8 @@ def test_debug_fp_names_first_bad_pixel(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,roadmap", [
-    (["--integrator", "sppm"], "A12"), (["--integrator", "pssmlt"], "A12"),
-    (["--integrator", "spectral"], "A12"), (["--mesh", "2,1"], "A13"),
+    (["--integrator", "mlt"], "A12"), (["--integrator", "pssmlt"], "A12"),
+    (["--integrator", "erpt"], "A12"), (["--mesh", "2,1"], "A13"),
     (["--distributed", "localhost:1234,2,0"], "A13")])
 def test_unported_options_exit(tmp_path, argv, roadmap):
     p = write_scene(tmp_path)
@@ -277,12 +277,47 @@ def test_unported_options_exit(tmp_path, argv, roadmap):
     assert not (tmp_path / "o.exr").exists()
 
 
-@pytest.mark.parametrize("name", ["photonmapper", "ppm", "mlt", "erpt", "irrcache", "bre",
-                                  "spectral_path"])
+@pytest.mark.parametrize("name", ["pssmlt", "mlt", "erpt"])
 def test_unported_integrators_exit(tmp_path, name):
     """Every integrator name of the JAX CLI the port lacks exits naming A12."""
     with pytest.raises(SystemExit, match="A12"):
         cli.resolve_integrator(name)
+
+
+FOG = ('<medium type="homogeneous"><rgb name="sigmaS" value="0.6, 0.6, 0.6"/>'
+       '<rgb name="sigmaA" value="0.05, 0.05, 0.05"/></medium>')
+
+
+def _photon_renders():
+    """name -> the in-process render the CLI's --integrator name must give,
+    with the JAX CLI's pass counts from cfg.spp (mitsuba_tpu/cli.py:230-265)."""
+    from mitsuba_tpu_torch.integrators import bre, irrcache, photonmapper, spectral, sppm
+
+    def sppm_(s, c, k):
+        return sppm.render(s, c, k, n_passes=max(k.spp // 4, 1))[0]
+
+    return {"sppm": sppm_, "ppm": sppm_,
+            "photonmapper": lambda s, c, k: photonmapper.render(
+                s, c, k, n_passes=max(min(k.spp // 4, 16), 1)),
+            "bre": bre.render, "irrcache": irrcache.render,
+            "spectral": lambda s, c, k: common.render(s, c, spectral.li, k),
+            "spectral_path": lambda s, c, k: common.render(s, c, spectral.li, k)}
+
+
+@pytest.mark.parametrize("name", ["sppm", "ppm", "photonmapper", "bre", "irrcache",
+                                  "spectral", "spectral_path"])
+def test_photon_and_spectral_integrators(tmp_path, name):
+    """--integrator with each name of the photon-mapping and spectral slice
+    renders the 8x8 scene (in the fog for bre) at its 8 spp through cli.main
+    --cpu: the EXR equals the in-process render of the loaded scene with
+    the JAX CLI's pass counts."""
+    p = write_scene(tmp_path, extra=FOG if name == "bre" else "")
+    assert run(p, "-o", tmp_path / "o.exr", "-q", "--integrator", name) == 0
+    scene, cam, cfg, _ = xml.load_xml(p, device="cpu")
+    want = _photon_renders()[name](scene, cam, cfg).numpy()
+    got = image.read_exr(tmp_path / "o.exr")
+    assert got.shape == (8, 8, 3) and np.isfinite(got).all() and got.mean() > 0
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("name,module,fn", [

@@ -280,10 +280,25 @@ def test_envmap_total_radiance():
     assert np.allclose(est, ref, rtol=2e-2), (est, ref)
 
 
-def test_spectral_envmap_raises():
-    em = tenv.build_envmap(_env_image(), device="cpu")
-    with pytest.raises(NotImplementedError, match="eval_radiance_spectral"):
-        tenv.eval_radiance_spectral(em, torch.zeros(4, 3), torch.zeros(4, 4))
+def test_spectral_envmap_matches_jax():
+    """eval_radiance_spectral (bilinear over the lat-long band stack, linear
+    across the bands) against the JAX package at 1e-5: 4,096 directions,
+    the seam's negative columns and the poles included, four wavelengths
+    each from below the first band to above the last."""
+    rs = np.random.RandomState(8)
+    img = _env_image()
+    bands = rs.uniform(0.0, 3.0, img.shape[:2] + (11,)).astype(np.float32)
+    jem = jenv.attach_envmap(jb.cornell_box(width=8, height=8)[0], img, 1.7,
+                             spectral=bands).envmap
+    em = tenv.build_envmap(img, 1.7, device="cpu").replace(spectral=torch.as_tensor(bands))
+    d = rs.normal(size=(4096, 3)).astype(np.float32)
+    d[:4] = [[0, 1, 0], [0, -1, 0], [1e-7, 0.3, -1], [-1e-7, 0.3, -1]]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    lam = rs.uniform(300.0, 740.0, (4096, 4)).astype(np.float32)
+    want = np.asarray(jenv.eval_radiance_spectral(jem, jnp.asarray(d), jnp.asarray(lam)))
+    got = tenv.eval_radiance_spectral(em, torch.as_tensor(d), torch.as_tensor(lam)).numpy()
+    assert got.shape == (4096, 4)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
