@@ -75,10 +75,20 @@ volpath.li, the irradiance cache against path.li and direct.li, spectral.li
 on the gray box per channel, render_adaptive's spp map, SPPM on the
 10,372-triangle mesh through B2, and the CLI's sppm and spectral on
 [cli_cornell]'s scene files.
+Then daylight, woven cloth and primary-sample Metropolis (the [daylight]
+group, DAYLIGHT_PHASES), counted and twin checked the same way: a scene
+file under tests/test_sunsky.py's sunsky (the 512x256 baked map and its
+11-band stack) through the wavefront at 256x256 x 64 spp, depth 8, against
+common.render, and through spectral.li; the big mesh under the same sky on
+B2; tests/test_irawan.py's quad in cotton and silk at 256x256 x 64 spp,
+and 2^20 cloth lanes on the card against the CPU; pssmlt and erpt on the
+Cornell box at 256x256, depth 8, 2^15 chains x 64 mutations from 2^17
+bootstrap paths, against path.li's mean; the real command on a sunsky
+and cloth scene file, and the CLI's pssmlt and erpt.
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The line [total] gives the whole script's seconds and those of
-the materials, the media, the front-end, the CLI, the bidirectional and
-the photon phases.
+the materials, the media, the front-end, the CLI, the bidirectional, the
+photon and the daylight phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -3500,6 +3510,378 @@ PHOTON_PHASES = (phase_sppm, phase_photonmapper, phase_bre, phase_irrcache,
                  phase_spectral_adaptive, phase_photon_mesh, phase_cli_photon)
 
 
+# ---------------------------------------------------------------------------
+# daylight, woven cloth and primary-sample Metropolis (the [daylight] group)
+# ---------------------------------------------------------------------------
+
+DAYLIGHT_WIDTH = 256
+SUNSKY_SPP = 64
+SUNSKY_DEPTH = 8
+SUNSKY_SPECTRAL_SPP = 16
+SUNSKY_WAVEFRONT_RTOL = 0.01     # the wavefront's mean against common.render's
+SUNSKY_PLANE_MIN = 0.1           # tests/test_sunsky.py:101
+SUNSKY_SPECTRAL_RTOL = 0.15      # tests/test_sunsky.py:309, on the luminance means
+SUNSKY_DIR = (0.3, 0.8, 0.52)
+IRAWAN_SPP = 64
+IRAWAN_DEPTH = 3
+IRAWAN_MIN_MEAN = 0.03           # tests/test_irawan.py:131
+IRAWAN_MIN_STD = 0.005           # tests/test_irawan.py:133
+IRAWAN_LANES = 1 << 20
+# the card against the CPU on the same lanes, at most one lane in 1,024 per
+# output beyond the bar (C23's and C36's 4 of 4,096: a last-bit difference
+# in a transcendental carried across a branch or amplified): C10's bar on
+# the gathered fields and on eval_pdf, C23's sample bar on sample's wo,
+# weight and pdf (ROADMAP C41: float32 itself lies 844, 6,130 and 92 lanes
+# of 2^20 from float64 at C10's bar there, on the CPU)
+IRAWAN_LANE_TOL = 1e-6
+IRAWAN_SAMPLE_RTOL, IRAWAN_SAMPLE_ATOL = 1e-4, 1e-5
+IRAWAN_MAX_OFF_SHARE = 1.0 / 1024
+MCMC_CHAINS = 1 << 15            # the JAX defaults
+MCMC_BOOTSTRAP = 1 << 17
+MCMC_MUTATIONS = 64              # the CLI's count at -s 64 or below
+PSSMLT_RTOL = 0.08               # tests/test_pssmlt.py:19
+PSSMLT_MIN_CORR = 0.95           # tests/test_pssmlt.py:27
+ERPT_RTOL = 0.10                 # tests/test_more_integrators.py:31
+DAYLIGHT_CLI_WIDTH = 128
+DAYLIGHT_CLI_SPP = 16
+
+
+def daylight_xml(width, spp, depth, shapes, emitter=None):
+    """A scene file under tests/test_sunsky.py:75-93's sky (sunDirection
+    SUNSKY_DIR, turbidity 3, the loader's default resolution of 512: a
+    512x256 map), seen from (0, 1, 4), with `shapes` (XML) and `emitter`
+    (XML, in place of the sky where given)."""
+    sky = emitter or (f'<emitter type="sunsky"><vector name="sunDirection" x="{SUNSKY_DIR[0]}" '
+                      f'y="{SUNSKY_DIR[1]}" z="{SUNSKY_DIR[2]}"/>'
+                      f'<float name="turbidity" value="3"/></emitter>')
+    return (f'<scene version="0.6.0"><integrator type="path"><integer name="maxDepth" '
+            f'value="{depth}"/></integrator><sensor type="perspective"><transform '
+            f'name="toWorld"><lookat origin="0,1,4" target="0,0,0" up="0,1,0"/></transform>'
+            f'<sampler type="independent"><integer name="sampleCount" value="{spp}"/>'
+            f'</sampler><film type="hdrfilm"><integer name="width" value="{width}"/>'
+            f'<integer name="height" value="{width}"/></film></sensor>{sky}{shapes}</scene>\n')
+
+
+# tests/test_sunsky.py:88-91's ground (a rectangle scaled by 3), first in the
+# file (triangles 0 and 1), and a cube on it
+GROUND_XML = ('<shape type="rectangle"><transform name="toWorld"><rotate x="1" angle="-90"/>'
+              '<scale value="3"/></transform><bsdf type="diffuse"/></shape>')
+CUBE_XML = ('<shape type="cube"><transform name="toWorld"><scale value="0.4"/>'
+            '<translate y="0.4"/></transform><bsdf type="diffuse"><rgb name="reflectance" '
+            'value="0.6, 0.45, 0.3"/></bsdf></shape>')
+
+
+def irawan_xml(preset, width, spp, depth):
+    """tests/test_irawan.py:101-123's quad under a constant light, `preset`
+    at repeatU = repeatV = 6."""
+    return (f'<scene version="0.6.0"><integrator type="path"><integer name="maxDepth" '
+            f'value="{depth}"/></integrator><sensor type="perspective"><float name="fov" '
+            f'value="40"/><transform name="toWorld"><lookat origin="0, 0.4, 2.2" '
+            f'target="0, 0, 0" up="0, 1, 0"/></transform><sampler type="independent">'
+            f'<integer name="sampleCount" value="{spp}"/></sampler><film type="hdrfilm">'
+            f'<integer name="width" value="{width}"/><integer name="height" value="{width}"/>'
+            f'</film></sensor><emitter type="constant"><rgb name="radiance" value="1, 1, 1"/>'
+            f'</emitter><shape type="rectangle"><transform name="toWorld"><rotate x="1" '
+            f'angle="-90"/></transform><bsdf type="irawan"><string name="preset" '
+            f'value="{preset}"/><float name="repeatU" value="6"/><float name="repeatV" '
+            f'value="6"/></bsdf></shape></scene>\n')
+
+
+def load_scene_text(text, dev):
+    """load_xml of a scene file written from `text` in a temporary folder."""
+    import tempfile
+
+    from mitsuba_tpu_torch.scene import xml
+
+    with tempfile.TemporaryDirectory() as tmp:
+        p = Path(tmp) / "scene.xml"
+        p.write_text(text)
+        return xml.load_xml(p, device=dev)
+
+
+def primary_prims(scene, cam):
+    """The triangle each pixel centre's camera ray hits, -1 where it misses
+    (one closest-hit query outside the counted renders)."""
+    import torch
+
+    from mitsuba_tpu_torch.models import sensor
+    from mitsuba_tpu_torch.ops import trace
+
+    w, h = cam.width, cam.height
+    ys, xs = torch.meshgrid(torch.arange(h, device=scene.device),
+                            torch.arange(w, device=scene.device), indexing="ij")
+    n = w * h
+    o, d, _ = sensor.sample_rays(cam, xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5,
+                                 torch.full((n, 2), 0.5, device=scene.device))
+    its = trace.closest_hit(scene, o, d)
+    return torch.where(its.valid, its.prim.long(), -1).reshape(h, w)
+
+
+def luminance(img):
+    import torch
+
+    return float((img @ torch.tensor([0.2126, 0.7152, 0.0722], device=img.device)).mean())
+
+
+def phase_sunsky(dev):
+    """[sunsky]: the ground and a cube under tests/test_sunsky.py's sunsky,
+    loaded from a scene file (the 512x256 envmap and its 11-band stack),
+    at 256x256 x 64 spp, path depth 8, through the wavefront on B1;
+    [sunsky_check]: its mean within 1% of common.render's with path.li, the
+    ground's pixels (their primary hit on triangles 0-1) above the JAX
+    test's 0.1. [sunsky_spectral]: spectral.li on the true band stack at
+    16 spp, its luminance mean within 15% of the RGB render's
+    (tests/test_sunsky.py:309). Returns B1's launches by path."""
+    import dataclasses
+
+    from mitsuba_tpu_torch.integrators import common, path, spectral, wavefront
+
+    w = DAYLIGHT_WIDTH
+    scene, cam, cfg, _ = load_scene_text(daylight_xml(w, SUNSKY_SPP, SUNSKY_DEPTH,
+                                                      GROUND_XML + CUBE_XML), dev)
+    img, out = bidir_cell("sunsky", lambda c: wavefront.render(scene, cam, c), cfg, dev, scene,
+                          cam, envmap=list(scene.envmap.image.shape),
+                          bands=scene.envmap.spectral.shape[-1])
+    ref = common.render(scene, cam, path.li, cfg)
+    prims = primary_prims(scene, cam)
+    ground = (prims >= 0) & (prims < 2)
+    mean, ref_mean = float(img.mean()), float(ref.mean())
+    ground_mean = float(img.mean(-1)[ground].mean())
+    gap = abs(mean - ref_mean) / ref_mean
+    say("sunsky_check", wavefront_mean=round(mean, 6), path_mean=round(ref_mean, 6),
+        rel_gap=round(gap, 5), bar=SUNSKY_WAVEFRONT_RTOL, ground_pixels=int(ground.sum()),
+        ground_mean=round(ground_mean, 6), ground_min_mean=SUNSKY_PLANE_MIN)
+    if not (gap < SUNSKY_WAVEFRONT_RTOL and ground_mean > SUNSKY_PLANE_MIN):
+        raise AssertionError(f"sunsky: wavefront {mean} against {ref_mean}, ground {ground_mean}")
+
+    spec, launches = bidir_cell("sunsky_spectral", li_render(scene, cam, spectral.li),
+                                dataclasses.replace(cfg, spp=SUNSKY_SPECTRAL_SPP), dev, scene, cam)
+    out.update(launches)
+    ls, lr = luminance(spec), luminance(ref)
+    say("sunsky_spectral_check", luminance=round(ls, 6), rgb_luminance=round(lr, 6),
+        rel_gap=round(abs(ls - lr) / lr, 5), bar=SUNSKY_SPECTRAL_RTOL)
+    if not abs(ls - lr) / lr < SUNSKY_SPECTRAL_RTOL:
+        raise AssertionError(f"sunsky_spectral: luminance {ls} against the RGB render's {lr}")
+    return out
+
+
+def phase_daylight_mesh(dev):
+    """[daylight_mesh]: bench.py's big mesh (the 70,034-triangle displaced
+    sphere, BVH attached) under the same sky (sunsky.bake at resolution
+    512 beside its area light), at its configuration, 128x128 x 16 spp,
+    depth 4, rr 3, through path.li: every search on B2, none on B1.
+    Returns B2's launches by path."""
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.models import emitter, sunsky
+    from mitsuba_tpu_torch.scene import builtin, envmap
+
+    scene, cam = builtin.displaced_sphere(device=dev)
+    sky = sunsky.bake("sunsky", sun_dir=np.asarray(SUNSKY_DIR, np.float64), turbidity=3.0)
+    scene = emitter.compute_group_probs(envmap.attach_envmap(scene, sky))
+    cfg = common.RenderConfig(spp=16, max_depth=4, rr_depth=3, seed=0)
+    return bidir_cell("daylight_mesh", li_render(scene, cam, path.li), cfg, dev, scene, cam,
+                      kernel="b2", envmap=list(scene.envmap.image.shape))[1]
+
+
+def irawan_lanes(dev):
+    """[irawan_lanes]: gather_yarn, eval_pdf and sample of the Irawan family
+    on IRAWAN_LANES lanes (three weave slots: cotton with the Perlin umax
+    perturbation and the intensity variation on, silk, cotton; uv in
+    [-2, 3)^2) on the card against the same calls on the CPU: the gathered
+    fields and eval_pdf at C10's bar, sample's outputs at C23's, each with
+    at most IRAWAN_MAX_OFF_SHARE of the lanes beyond."""
+    import torch
+
+    from mitsuba_tpu_torch.models import bsdf, cloth
+    from mitsuba_tpu_torch.scene import ir
+
+    perturbed = cloth.PRESET_COTTON.replace(
+        "fineness = 0.0, period = 0.0",
+        "fineness = 3.0, period = 2.0, dWarpUmaxOverDWarp = 10.0, dWarpUmaxOverDWeft = 8.0, "
+        "dWeftUmaxOverDWarp = 6.0, dWeftUmaxOverDWeft = 4.0")
+    entries = []
+    for text, rep in ((perturbed, 6.0), (cloth.PRESET_SILK, 2.0), (cloth.PRESET_COTTON, 1.0)):
+        pat = cloth.parse_weave(text)
+        cloth.compute_normalization(pat)
+        entries.append((pat, rep, rep))
+    slots = {1: 0, 3: 1, 4: 2}
+    n = IRAWAN_LANES
+    rs = np.random.RandomState(11)
+    uv = rs.uniform(-2.0, 3.0, (n, 2)).astype(np.float32)
+    mat = rs.choice(sorted(slots), n).astype(np.int32)
+    wi, wo = (rs.normal(size=(n, 3)) for _ in range(2))
+    wi[:, 2], wo[:, 2] = np.abs(wi[:, 2]), np.abs(wo[:, 2])
+    wi, wo = ((v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32) for v in (wi, wo))
+    u = rs.uniform(size=(n, 3)).astype(np.float32)
+    fams = (ir.BSDF_IRAWAN,)
+
+    def run(device):
+        t = {k: torch.from_numpy(v).to(device) for k, v in
+             dict(uv=uv, mat=mat, wi=wi, wo=wo, u=u).items()}
+        over = cloth.gather_yarn(cloth.build_tables(entries, 5, slots, device=device),
+                                 t["mat"], t["uv"])
+        sp = bsdf.ShadePoint(type=torch.full((n,), ir.BSDF_IRAWAN, dtype=torch.int32,
+                                             device=device), **over)
+        f, pdf = bsdf.eval_pdf(sp, t["wi"], t["wo"], fams)
+        wo_s, weight, pdf_s, _ = bsdf.sample(sp, t["wi"], t["u"][:, 0], t["u"][:, 1:], fams)
+        outs = {**over, "f": f, "pdf": pdf, "wo": wo_s, "weight": weight, "pdf_s": pdf_s}
+        return {k: v.cpu().numpy().astype(np.float64) for k, v in outs.items()}
+
+    (card, card_s), cpu = timed(lambda: run(dev), dev), run("cpu")
+    sampled = ("wo", "weight", "pdf_s")
+    off = {}
+    for k, want in cpu.items():
+        rtol, atol = ((IRAWAN_SAMPLE_RTOL, IRAWAN_SAMPLE_ATOL) if k in sampled
+                      else (IRAWAN_LANE_TOL, IRAWAN_LANE_TOL))
+        bad = ~np.isclose(card[k], want, rtol=rtol, atol=atol)
+        off[k] = int(bad.reshape(n, -1).any(-1).sum())
+    worst = {k: float(np.abs(card[k] - cpu[k]).max()) for k in cpu}
+    say("irawan_lanes", lanes=n, card_s=round(card_s, 4), lanes_off=off,
+        max_abs_diff={k: f"{v:.3g}" for k, v in worst.items()},
+        bar={"c10": IRAWAN_LANE_TOL, "sample": [IRAWAN_SAMPLE_RTOL, IRAWAN_SAMPLE_ATOL]},
+        max_off=int(n * IRAWAN_MAX_OFF_SHARE))
+    if max(off.values()) > n * IRAWAN_MAX_OFF_SHARE or not all(
+            np.isfinite(v).all() for v in card.values()):
+        raise AssertionError(f"irawan_lanes: lanes beyond the bars {off}")
+
+
+def phase_irawan(dev):
+    """[irawan_cotton], [irawan_silk]: tests/test_irawan.py's quad under a
+    constant light, loaded from a scene file (the preset at repeat 6: the
+    staple and the filament integrand), at 256x256 x 64 spp, path depth 3,
+    through path.li on B1; [irawan_check]: each image's mean above 0.03
+    and its standard deviation above 0.005 (the weave shows). Then
+    [irawan_lanes]. Returns B1's launches by path."""
+    from mitsuba_tpu_torch.integrators import path
+
+    out, stats = {}, {}
+    for preset in ("cotton", "silk"):
+        scene, cam, cfg, _ = load_scene_text(
+            irawan_xml(preset, DAYLIGHT_WIDTH, IRAWAN_SPP, IRAWAN_DEPTH), dev)
+        img, launches = bidir_cell(f"irawan_{preset}", li_render(scene, cam, path.li), cfg, dev,
+                                   scene, cam, spec_norm=round(float(scene.cloth.patp[0, 7]), 4))
+        out.update(launches)
+        stats[preset] = (float(img.mean()), float(img.std()))
+    say("irawan_check", **{p: {"mean": round(m, 6), "std": round(s, 6)}
+                           for p, (m, s) in stats.items()},
+        bars={"mean": IRAWAN_MIN_MEAN, "std": IRAWAN_MIN_STD})
+    if not all(m > IRAWAN_MIN_MEAN and s > IRAWAN_MIN_STD for m, s in stats.values()):
+        raise AssertionError(f"irawan: mean and std {stats}")
+    irawan_lanes(dev)
+    return out
+
+
+def blurred_corr(a, b, k=3):
+    """tests/test_pssmlt.py:20-27: the correlation of the two images' 3x3
+    box-blurred channel means."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    def blur(x):
+        pad = np.pad(x.mean(-1), k // 2, mode="edge")
+        return sliding_window_view(pad, (k, k)).mean((-1, -2))
+    return float(np.corrcoef(blur(a).ravel(), blur(b).ravel())[0, 1])
+
+
+def phase_mcmc(dev):
+    """[pssmlt], [erpt]: pssmlt.render and erpt.render on the Cornell box at
+    256x256, depth 8, with the JAX defaults (2^15 chains, 2^17 bootstrap
+    paths) and MCMC_MUTATIONS mutations (the cell's spp; its [profile] line
+    runs 4), through B1; samples_per_s counts path evaluations (bootstrap +
+    chains x (mutations + 1)). Each mean within its JAX test's bar of
+    path.li's (64 spp): 8% and 10%; pssmlt's blurred image correlated with
+    path.li's above 0.95 ([pssmlt_check]). Returns B1's launches by path."""
+    from mitsuba_tpu_torch.integrators import erpt, path, pssmlt
+    from mitsuba_tpu_torch.scene import builtin
+
+    w = DAYLIGHT_WIDTH
+    scene, cam = builtin.cornell_box(w, w, device=dev)
+    ref = ref_image(scene, cam, path.li, BIDIR_DEPTH)
+    evaluations = MCMC_BOOTSTRAP + MCMC_CHAINS * (MCMC_MUTATIONS + 1)
+    out = {}
+    for name, make, rtol in (
+            ("pssmlt", lambda c: pssmlt.render(scene, cam, c, n_chains=MCMC_CHAINS,
+                                               n_mutations=c.spp, n_bootstrap=MCMC_BOOTSTRAP),
+             PSSMLT_RTOL),
+            ("erpt", lambda c: erpt.render(scene, cam, c, n_chains=MCMC_CHAINS,
+                                           chain_length=c.spp, n_bootstrap=MCMC_BOOTSTRAP),
+             ERPT_RTOL)):
+        img, launches = bidir_cell(name, make, _bidir_cfg(MCMC_MUTATIONS), dev, scene, cam,
+                                   float(ref.mean()), rtol, samples=evaluations,
+                                   chains=MCMC_CHAINS, bootstrap=MCMC_BOOTSTRAP,
+                                   mutations=MCMC_MUTATIONS, evaluations=evaluations)
+        out.update(launches)
+        if name == "pssmlt":
+            corr = blurred_corr(ref.cpu().numpy(), img.cpu().numpy())
+            say("pssmlt_check", blurred_corr=round(corr, 5), bar=PSSMLT_MIN_CORR)
+            if not corr > PSSMLT_MIN_CORR:
+                raise AssertionError(f"pssmlt: blurred correlation {corr}")
+    return out
+
+
+def phase_cli_daylight(dev):
+    """[cli_daylight]: a scene file with a sunsky and an irawan rectangle
+    (cotton at repeat 6, the ground of [sunsky] scaled by 3) at 128x128 x 16
+    spp, path depth 3, by the real command as a subprocess (wall time) and
+    by cli.main in process (B1's launches counted and twin checked); both
+    EXRs against common.render of the loaded scene at the goldens' bar
+    (check_golden). [cli_pssmlt], [cli_erpt]: [cli_cornell]'s scene files
+    with --integrator pssmlt / erpt and -s 16 (64 mutations, the JAX
+    defaults' chains and bootstrap paths) by cli.main in process, each mean
+    within its JAX test's bar of path.li's render of the loaded scene.
+    Returns B1's launches by path."""
+    import dataclasses
+    import tempfile
+
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.io import image
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import xml
+
+    cloth_ground = GROUND_XML.replace(
+        '<bsdf type="diffuse"/>', '<bsdf type="irawan"><string name="preset" value="cotton"/>'
+        '<float name="repeatU" value="6"/><float name="repeatV" value="6"/></bsdf>')
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        xml_path = tmp / "daylight.xml"
+        xml_path.write_text(daylight_xml(DAYLIGHT_CLI_WIDTH, DAYLIGHT_CLI_SPP, IRAWAN_DEPTH,
+                                         cloth_ground + CUBE_XML))
+        loaded, lcam, lcfg, _ = xml.load_xml(xml_path, device=dev)
+        want = common.render(loaded, lcam, path.li, lcfg).cpu().numpy()
+        wall = run_cli_subprocess(xml_path, tmp / "sub.exr")
+        launches, checked, times = run_cli_counted(bk, [xml_path, "-o", tmp / "in.exr"], dev)
+        checks = [check_golden(image.read_exr(tmp / f"{k}.exr"), want) for k in ("sub", "in")]
+        say("cli_daylight", resolution=f"{lcam.width}x{lcam.height}", spp=lcfg.spp,
+            tris=loaded.num_triangles, envmap=list(loaded.envmap.image.shape),
+            subprocess_wall_s=round(wall, 3), **times, b1_launches=launches,
+            twin_checked_rays=checked, twin_mismatches=0,
+            pixels_off=[c[0] for c in checks], max_abs_diff=[c[1] for c in checks],
+            mean_radiance=round(float(want.mean()), 6))
+        out.update(path_launches("cli_daylight", launches))
+
+        xml_path = cli_cornell_files(tmp, dev)[0]
+        loaded, lcam, lcfg, _ = xml.load_xml(xml_path, device=dev)
+        ref = float(common.render(loaded, lcam, path.li, lcfg).mean())
+        for name, rtol in (("pssmlt", PSSMLT_RTOL), ("erpt", ERPT_RTOL)):
+            launches, checked, times = run_cli_counted(
+                bk, [xml_path, "-o", tmp / f"{name}.exr", "-s", DAYLIGHT_CLI_SPP,
+                     "--integrator", name], dev)
+            got = image.read_exr(tmp / f"{name}.exr")
+            mean = float(got.mean())
+            say(f"cli_{name}", resolution=f"{lcam.width}x{lcam.height}", spp=DAYLIGHT_CLI_SPP,
+                mutations=max(DAYLIGHT_CLI_SPP, 64), **times, b1_launches=launches,
+                twin_checked_rays=checked, twin_mismatches=0, mean_radiance=round(mean, 6),
+                path_mean=round(ref, 6), rel_to_path=round(abs(mean - ref) / ref, 5), bar=rtol)
+            if not (np.isfinite(got).all() and abs(mean - ref) <= rtol * ref):
+                raise AssertionError(f"cli_{name}: mean {mean} against path's {ref}")
+            out.update(path_launches(f"cli_{name}", launches))
+    return out
+
+
+DAYLIGHT_PHASES = (phase_sunsky, phase_daylight_mesh, phase_irawan, phase_mcmc,
+                   phase_cli_daylight)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3592,6 +3974,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths.update(phase(dev))
         photon_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
+    t_daylight = time.perf_counter()
+    daylight_s = {}
+    for phase in DAYLIGHT_PHASES:
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        daylight_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
     t_end = time.perf_counter()
     say("total", seconds=round(t_end - t_start, 3),
         materials_seconds=round(t_media - t_materials, 3),
@@ -3599,7 +3987,8 @@ def main(argv=None) -> int:
         frontend_seconds=round(t_cli - t_frontend, 3), frontend_phase_seconds=frontend_s,
         cli_seconds=round(t_bidir - t_cli, 3), cli_phase_seconds=cli_s,
         bidir_seconds=round(t_photon - t_bidir, 3), bidir_phase_seconds=bidir_s,
-        photon_seconds=round(t_end - t_photon, 3), photon_phase_seconds=photon_s)
+        photon_seconds=round(t_daylight - t_photon, 3), photon_phase_seconds=photon_s,
+        daylight_seconds=round(t_end - t_daylight, 3), daylight_phase_seconds=daylight_s)
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -34,10 +34,10 @@ _LI_NAMES = {"path": ("path", "li"), "mypath": ("path", "li"), "mypath2": ("path
              "vpl": ("vpl", "li"), "spectral": ("spectral", "li"),
              "spectral_path": ("spectral", "li")}
 # the integrators that render the whole film themselves: resolve_integrator
-# returns the name. The other names of the JAX CLI (pssmlt, mlt, erpt) wait
-# for ROADMAP A12.
+# returns the name. The JAX CLI's path-space `mlt` waits for the rest of
+# ROADMAP A12 (ops/manifold.py and integrators/mlt.py).
 _FILM_RENDERERS = ("ptracer", "multichannel", "sppm", "ppm", "photonmapper", "bre",
-                   "irrcache")
+                   "irrcache", "pssmlt", "erpt")
 
 
 def build_argparser():
@@ -59,7 +59,8 @@ def build_argparser():
     ap.add_argument("--integrator", default=None,
                     help="override integrator (path, direct, volpath, bdpt, lvcbpt, "
                          "vpl, ptracer, multichannel, sppm, ppm, photonmapper, bre, "
-                         "irrcache, spectral, depth, normal, ao, motion, ...)")
+                         "irrcache, pssmlt, erpt, spectral, depth, normal, ao, "
+                         "motion, ...)")
     ap.add_argument("--mesh", default=None, metavar="DP,SP",
                     help="multi-device rendering: not ported yet (ROADMAP A13)")
     ap.add_argument("--distributed", default=None, metavar="HOST:PORT,N,I",
@@ -97,14 +98,15 @@ def build_argparser():
 def resolve_integrator(name: str):
     """The port's Li function for an integrator name, or the name itself for
     the integrators that render the whole film themselves (ptracer,
-    multichannel, the photon mappers, bre, irrcache); exits naming ROADMAP
-    A12 for every integrator not ported yet."""
+    multichannel, the photon mappers, bre, irrcache, pssmlt, erpt); exits
+    naming ROADMAP A12 for every integrator not ported yet (path-space mlt:
+    ops/manifold.py and integrators/mlt.py)."""
     if name in _FILM_RENDERERS:
         return name
     if name not in _LI_NAMES:
         raise SystemExit(
-            f"integrator '{name}' is not ported yet (ROADMAP A12); "
-            f"have: {sorted(_LI_NAMES) + list(_FILM_RENDERERS)}")
+            f"integrator '{name}' is not ported yet (ROADMAP A12: ops/manifold.py "
+            f"and integrators/mlt.py); have: {sorted(_LI_NAMES) + list(_FILM_RENDERERS)}")
     import importlib
 
     module, fn = _LI_NAMES[name]
@@ -325,7 +327,7 @@ def _render_one(args):
 
 def render_film(name, scene, cam, cfg):
     """The image of an integrator that renders the whole film itself, with
-    the JAX CLI's pass and photon counts from cfg.spp."""
+    the JAX CLI's pass, photon and mutation counts from cfg.spp."""
     if name == "ptracer":
         from .integrators import ptracer
 
@@ -342,6 +344,14 @@ def render_film(name, scene, cam, cfg):
         from .integrators import bre
 
         return bre.render(scene, cam, cfg)
+    if name == "pssmlt":
+        from .integrators import pssmlt
+
+        return pssmlt.render(scene, cam, cfg, n_mutations=max(cfg.spp, 64))
+    if name == "erpt":
+        from .integrators import erpt
+
+        return erpt.render(scene, cam, cfg, chain_length=max(cfg.spp, 64))
     from .integrators import irrcache
 
     return irrcache.render(scene, cam, cfg)

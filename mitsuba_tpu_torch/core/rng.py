@@ -8,6 +8,7 @@ in [0, 2^32) and every multiply and add is reduced mod 2^32.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -89,3 +90,63 @@ class SampleStream:
 
     def next_2d(self):
         return torch.stack([self.next_1d(), self.next_1d()], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# A numpy copy of JAX's threefry draws, for the load-time estimates that the
+# JAX package makes with jax.random (models/cloth.py compute_normalization):
+# the same key gives the same uniforms bit for bit, so the port's load equals
+# the JAX package's. It follows JAX's `jax_threefry_partitionable` mode (on
+# in the JAX the tests run against): split and random_bits hash a 64-bit
+# iota split into two uint32 words. Never used at render time: renders hash
+# with `uniform` above.
+# ---------------------------------------------------------------------------
+
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 with 20 rounds (Salmon et al. 2011), as
+    jax._src.prng.threefry2x32: uint32 numpy arrays in and out."""
+    k0, k1 = np.uint32(k0), np.uint32(k1)
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    x = [np.asarray(x0, np.uint32) + ks[0], np.asarray(x1, np.uint32) + ks[1]]
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in _ROTATIONS[i % 2]:
+                x[0] = x[0] + x[1]
+                x[1] = (x[1] << np.uint32(r)) | (x[1] >> np.uint32(32 - r))
+                x[1] = x[0] ^ x[1]
+            x[0] = x[0] + ks[(i + 1) % 3]
+            x[1] = x[1] + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x[0], x[1]
+
+
+def _iota_words(shape):
+    """jax._src.prng.iota_2x32_shape: a uint64 iota over `shape` as its high
+    and low uint32 words."""
+    i = np.arange(int(np.prod(shape)), dtype=np.uint64).reshape(shape)
+    return (i >> np.uint64(32)).astype(np.uint32), (i & np.uint64(_M32)).astype(np.uint32)
+
+
+def threefry_key(seed: int) -> np.ndarray:
+    """jax.random.PRNGKey(seed) for a seed in [0, 2^31): (2,) uint32."""
+    if not 0 <= int(seed) < 1 << 31:
+        raise ValueError(f"threefry_key: seed {seed} outside [0, 2^31)")
+    return np.asarray([0, int(seed)], np.uint32)
+
+
+def threefry_split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """jax.random.split(key, num): (num, 2) uint32 keys."""
+    hi, lo = _iota_words((num,))
+    b0, b1 = _threefry2x32(key[0], key[1], hi, lo)
+    return np.stack([b0, b1], axis=-1)
+
+
+def threefry_uniform(key: np.ndarray, shape) -> np.ndarray:
+    """jax.random.uniform(key, shape) in float32 on [0, 1): the top 23 bits
+    of each word as the mantissa of a float in [1, 2), less one."""
+    hi, lo = _iota_words(tuple(shape))
+    b0, b1 = _threefry2x32(key[0], key[1], hi, lo)
+    bits = ((b0 ^ b1) >> np.uint32(9)) | np.uint32(0x3F800000)
+    return bits.view(np.float32) - np.float32(1.0)

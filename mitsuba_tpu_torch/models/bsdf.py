@@ -3,12 +3,12 @@ models/bsdf.py).
 
 Every ray batch gathers its material record into a ShadePoint SoA and each
 family present in the scene is evaluated for all rays, with lane masks
-selecting the right result. Every family of the JAX package is ported but
-one: Irawan's woven cloth (BSDF_IRAWAN) raises NotImplementedError naming
-itself. The Hanrahan-Krueger slab (BSDF_HK) scatters with the HG phase
-function of models/phase.py. The blend
-adapter resolves to a child in `gather_shade_point`; the coating adapter
-dispatches its nested record's families with bent directions.
+selecting the right result. Every family of the JAX package is ported.
+The Hanrahan-Krueger slab (BSDF_HK) scatters with the HG phase function of
+models/phase.py; Irawan's woven cloth (BSDF_IRAWAN) packs its yarn
+parameters into the generic fields at gather time (models/cloth.py). The
+blend adapter resolves to a child in `gather_shade_point`; the coating
+adapter dispatches its nested record's families with bent directions.
 
 Masked dispatch evaluates every family on every lane, so a NaN on a lane
 that a `torch.where` discards still poisons the gradient: the JAX
@@ -36,9 +36,6 @@ from . import texture as tex
 
 INV_PI = 1.0 / math.pi
 
-# families that still raise, with the ROADMAP item that brings them
-_UNPORTED = {ir.BSDF_IRAWAN: "Irawan's woven cloth needs models/cloth.py (ROADMAP A10.7)"}
-
 
 class ShadePoint(NamedTuple):
     """Per-ray gathered material record (SoA)."""
@@ -64,9 +61,6 @@ def map_tensors(fn, sp: ShadePoint) -> ShadePoint:
 
 def _check_families(families):
     for fam in families:
-        if fam in _UNPORTED:
-            raise NotImplementedError(
-                f"BSDF family {ir.BSDF_NAMES[fam]!r} is not ported: {_UNPORTED[fam]}")
         if fam not in _EVAL and fam not in (ir.BSDF_BLEND, ir.BSDF_COATING):
             raise NotImplementedError(
                 f"BSDF family {ir.BSDF_NAMES.get(fam, fam)!r} is not ported")
@@ -92,7 +86,8 @@ def gather_shade_point(scene, mat: torch.Tensor, uv: torch.Tensor,
     surface_interaction's dict: its mip footprint and uv partials, where
     present, drive the trilinear and EWA lookups, and its "vcolor" and
     "wirecolor" replace the reflectance of TEX_VERTEXCOLOR and TEX_WIREFRAME
-    rows."""
+    rows. Woven-cloth lanes take their yarn segment's packed parameters
+    from `scene.cloth` (models/cloth.py gather_yarn)."""
     _check_families(scene.bsdf_families)
     mats = scene.materials
     if ir.BSDF_BLEND in scene.bsdf_families:
@@ -115,6 +110,13 @@ def gather_shade_point(scene, mat: torch.Tensor, uv: torch.Tensor,
     if ir.BSDF_COATING in scene.bsdf_families:
         # one-level child gather for coating adapters (coating.cpp m_nested)
         sp = sp._replace(nested=_gather(scene, torch.clamp_min(mats.nested[mat, 0], 0), uv))
+    if ir.BSDF_IRAWAN in scene.bsdf_families and scene.cloth is not None:
+        from . import cloth as clothlib
+
+        over = clothlib.gather_yarn(scene.cloth, mat, uv)
+        is_cloth = (sp.type == ir.BSDF_IRAWAN)[:, None]
+        sp = sp._replace(**{k: torch.where(is_cloth, over[k], getattr(sp, k))
+                            for k in ("reflectance", "specular", "eta", "k", "alpha", "extra")})
     return sp
 
 
@@ -706,6 +708,23 @@ def _coating_sample(sp, wi, u_lobe, u2, families):
     return wo, weight, pdf, torch.where(pick_spec, delta_s, delta_n)
 
 
+def _irawan_eval(sp, wi, wo):
+    """src/bsdfs/irawan.cpp: woven cloth; its parameters were packed into
+    the generic fields at gather time (models/cloth.py gather_yarn)."""
+    from . import cloth as clothlib
+
+    return clothlib.eval_packed(sp, wi, wo)
+
+
+def _irawan_sample(sp, wi, u_lobe, u2):
+    """Cosine-hemisphere sampling, weight = eval/pdf (irawan.cpp:354)."""
+    wo = warp.square_to_cosine_hemisphere(u2)
+    f, pdf = _irawan_eval(sp, wi, wo)
+    weight = torch.where(pdf[..., None] > 1e-9,
+                         f / torch.clamp_min(pdf[..., None], 1e-9), 0.0)
+    return wo, weight, pdf, torch.zeros(pdf.shape, dtype=torch.bool, device=pdf.device)
+
+
 _EVAL = {
     ir.BSDF_DIFFUSE: _diffuse_eval,
     ir.BSDF_ROUGH_CONDUCTOR: _rough_conductor_eval,
@@ -722,6 +741,7 @@ _EVAL = {
     ir.BSDF_DIELECTRIC: _zero_eval,
     ir.BSDF_THIN_DIELECTRIC: _zero_eval,
     ir.BSDF_NULL: _zero_eval,
+    ir.BSDF_IRAWAN: _irawan_eval,
 }
 
 _SAMPLE = {
@@ -740,6 +760,7 @@ _SAMPLE = {
     ir.BSDF_DIELECTRIC: _dielectric_sample,
     ir.BSDF_THIN_DIELECTRIC: _thin_dielectric_sample,
     ir.BSDF_NULL: _null_sample,
+    ir.BSDF_IRAWAN: _irawan_sample,
 }
 
 # Families whose sample() is (partly) a delta lobe.

@@ -8,9 +8,11 @@ JAX package. `bvh` holds the stackless BVH of big meshes (scene/bvh.py;
 None until `bvh.attach`), `envmap` a lat-long environment
 (scene/envmap.py; None for a constant one), `occupancy` the occupancy map
 of approximate shadow rays (ops/occupancy.py; None until
-`occupancy.attach`). Bitmap textures live in one
-padded stack with their mip strip (built where `lod_scale` is given);
-vertex colours and wireframe materials are not ported.
+`occupancy.attach`), `cloth` the woven-cloth weave tables
+(models/cloth.ClothTables; None without Irawan materials). Bitmap
+textures live in one padded stack with their mip strip (built where
+`lod_scale` is given); vertex colours and wireframe materials are not
+ported.
 
 Gradients: the float leaves that may carry `requires_grad` (set through
 `replace()`, as the JAX tests differentiate them) are `vertices` (hit
@@ -238,6 +240,8 @@ class Scene(_Replace):
     wire_params: Optional[torch.Tensor] = None
     # ops/occupancy.OccupancyMap for approximate shadow rays; None = exact
     occupancy: object = None
+    # models/cloth.ClothTables of the BSDF_IRAWAN materials; None = no cloth
+    cloth: object = None
 
     # static metadata
     group_probs: tuple = ()
@@ -499,10 +503,6 @@ def uv_densities(vertices, indices, uvs, lod_scale) -> np.ndarray:
             * np.float32(lod_scale)).astype(np.float32)
 
 
-# JAX scene fields the port has no counterpart for yet; a scene that sets
-# one of them cannot be carried across. (`clusters` is the JAX TPU kernel's
-# private table: from_jax drops it and carries `bvh` instead.)
-_UNPORTED = ("cloth",)
 _OPTIONAL = ("tex_mips", "tri_uv_density", "vertex_colors", "wire_params")
 
 
@@ -524,12 +524,8 @@ def from_jax(jscene, device="cuda") -> Scene:
     table) are dropped, and need a `bvh` beside them. The texture stack,
     its mip strip, an `envmap`, a `medium` (its kind, phase and
     phase_params stay Python values), the `delta_emitters`, `vertex_colors`
-    and `wire_params` come across as they are, and so does an occupancy
-    map (ops/occupancy.py). Raises for the parts of the
-    JAX IR the port does not have yet."""
-    for name in _UNPORTED:
-        if getattr(jscene, name, None) is not None:
-            raise NotImplementedError(f"from_jax: scene.{name} is not ported")
+    and `wire_params` come across as they are, and so do an occupancy
+    map (ops/occupancy.py) and the woven-cloth tables (models/cloth.py)."""
     jbvh = getattr(jscene, "bvh", None)
     if getattr(jscene, "clusters", None) is not None and jbvh is None:
         raise NotImplementedError("from_jax: scene.clusters without a bvh: the "
@@ -556,6 +552,9 @@ def from_jax(jscene, device="cuda") -> Scene:
         elif f.name == "occupancy":
             om = getattr(jscene, "occupancy", None)
             fields[f.name] = None if om is None else _occupancy_from_jax(om, device)
+        elif f.name == "cloth":
+            jc = getattr(jscene, "cloth", None)
+            fields[f.name] = None if jc is None else _cloth_from_jax(jc, device)
         elif f.name == "delta_emitters":
             de = jscene.delta_emitters
             fields[f.name] = None if de is None else DeltaEmitters(
@@ -595,6 +594,12 @@ def _occupancy_from_jax(jom, device):
 
     return OccupancyMap(grid=_leaf(jom.grid, device), box_min=_leaf(jom.box_min, device),
                         inv_extent=_leaf(jom.inv_extent, device), res=int(jom.res))
+
+
+def _cloth_from_jax(jcloth, device):
+    from ..models.cloth import ClothTables
+
+    return ClothTables(*(_leaf(getattr(jcloth, f), device) for f in ClothTables._fields))
 
 
 def _medium_from_jax(jmed, device):

@@ -7,9 +7,11 @@ PluginManager::createObject) so reference scenes drive the renderer
 directly. The parsing and the host-side geometry are the JAX package's
 numpy code; the scene, camera and media are built with the port's own
 modules on `device`. Unknown plugins raise with the plugin name, the
-analog of PluginManager's load failure; the sun/sky emitters and the
-Irawan cloth BSDF, whose models are not ported yet, raise
-NotImplementedError naming ROADMAP A10.5.
+analog of PluginManager's load failure. The sun, sky and sunsky emitters
+are baked into a lat-long envmap (models/sunsky.py, models/hosek.py), with
+the Hosek sky's band stack for the spectral renderer; an Irawan BSDF's
+weave pattern becomes a slot of the scene's cloth tables
+(models/cloth.py).
 
 Also implements `$key` parameter substitution (mitsuba.cpp:58 -D flags) in
 every attribute, and <default> declarations. A property no converter read
@@ -306,6 +308,10 @@ class _Loader:
         self._flip_pending = False
         self.test_phases: list = []
         self.materials: list[dict] = []
+        # irawan cloth: slot entries (pattern, repeatU, repeatV) and
+        # material-id -> slot map (models/cloth.py build_tables)
+        self.cloth_entries: list = []
+        self.cloth_slots: dict = {}
         self.mat_ids: dict[str, int] = {}
         self.textures: list[dict] = []
         self.verts: list = []
@@ -804,11 +810,31 @@ class _Loader:
                 self.mat_ids[node.attrib["id"]] = mid
             return mid
         elif typ == "irawan":
-            # woven cloth (src/bsdfs/irawan.cpp): its model, the JAX
-            # package's models/cloth.py, is not ported yet
-            raise NotImplementedError(
-                "bsdf 'irawan' (woven cloth) is not ported: models/cloth.py "
-                "waits for ROADMAP A10.5")
+            # woven cloth (src/bsdfs/irawan.cpp): weave pattern file (or a
+            # named built-in preset) + repeatU/repeatV tiling
+            from ..models import cloth as clothlib
+
+            if "filename" in p:
+                text = Path(self.resolve(p["filename"])).read_text()
+            else:
+                preset = str(p.get("preset", "cotton"))
+                if preset not in clothlib.PRESETS:
+                    raise ValueError(f"unknown irawan preset '{preset}'")
+                text = clothlib.PRESETS[preset]
+            scalar_props = {k: v for k, v in p.items()
+                            if isinstance(v, (int, float))}
+            pat = clothlib.parse_weave(text, scalar_props)
+            clothlib.compute_normalization(pat)
+            slot = len(self.cloth_entries)
+            self.cloth_entries.append(
+                (pat, float(p.get("repeatU", 1.0)),
+                 float(p.get("repeatV", 1.0))))
+            mid = len(self.materials)
+            self.materials.append({"type": ir.BSDF_IRAWAN})
+            self.cloth_slots[mid] = slot
+            if "id" in node.attrib:
+                self.mat_ids[node.attrib["id"]] = mid
+            return mid
         elif typ in ("bumpmap", "normalmap"):
             # adapters (src/bsdfs/{bumpmap,normalmap}.cpp): annotate the
             # nested bsdf with a perturb map; the shading-normal rotation
@@ -1273,11 +1299,10 @@ def _process_children(root, ld, subst, base_dir):
                     rec["beam_deg"] = float(p.get("beamWidth", co * 0.75))
                 ld.delta_emitters.append(rec)
             elif typ in ("sun", "sky", "sunsky"):
-                # procedural daylight (sky.cpp, sun.cpp): the JAX package
-                # bakes it with models/sunsky.py, not ported yet
-                raise NotImplementedError(
-                    f"emitter '{typ}' is not ported: models/sunsky.py and "
-                    "models/hosek.py wait for ROADMAP A10.5")
+                # procedural daylight baked to a lat-long envmap at load
+                # time, the reference's strategy (sky.cpp bakes at
+                # `resolution` in configure()); models/sunsky.py
+                _daylight(ld, typ, p)
             else:
                 raise ValueError(f"unsupported emitter plugin '{typ}'")
         elif tag in ("default", "alias", "null"):
@@ -1293,8 +1318,52 @@ def _process_children(root, ld, subst, base_dir):
                 raise ValueError(f"unsupported scene element <{tag}>")
 
 
+def _daylight(ld, typ, p):
+    """A sun, sky or sunsky emitter: the sun from sunDirection, or from a
+    time and place (PSA, sunmodel.h:120), never both; baked by
+    models/sunsky.py with the JAX loader's defaults, plus the Hosek sky's
+    band stack for the spectral renderer."""
+    from ..models import sunsky as sunskylib
+
+    if "sunDirection" in p:
+        if any(k in p for k in ("latitude", "longitude", "timezone", "year", "month",
+                                "day", "hour", "minute", "second")):
+            raise ValueError("sunsky: give either sunDirection or time/location, "
+                             "not both (sunmodel.h:216)")
+        sd = p["sunDirection"]
+    elif any(k in p for k in ("latitude", "longitude", "hour", "day", "month", "year")):
+        sd = sunskylib.sun_direction(
+            year=int(p.get("year", 2010)), month=int(p.get("month", 7)),
+            day=int(p.get("day", 10)), hour=float(p.get("hour", 15.0)),
+            minute=float(p.get("minute", 0.0)), second=float(p.get("second", 0.0)),
+            latitude=float(p.get("latitude", 35.6894)),
+            longitude=float(p.get("longitude", 139.6917)),
+            timezone=float(p.get("timezone", 9.0)))
+    else:
+        sd = np.asarray([0.0, 0.7071, 0.7071])
+    alb_sky = p.get("albedo", 0.2)
+    kw = dict(sun_dir=np.asarray(sd, np.float64), turbidity=float(p.get("turbidity", 3.0)),
+              scale=float(p.get("scale", 1.0)), resolution=int(p.get("resolution", 512)),
+              sun_radius_scale=float(p.get("sunRadiusScale", 1.0)))
+    # the reference evaluates Hosek-Wilkie (sky.cpp:246); skyModel="preetham"
+    # selects the legacy dome
+    sky_model = str(p.get("skyModel", "hosek"))
+    data = sunskylib.bake(
+        typ, sky_model=sky_model,
+        albedo=(np.asarray(alb_sky, np.float64) if not np.isscalar(alb_sky)
+                else float(alb_sky)), **kw)
+    ld.env_radiance = None
+    ld.cfg_kw.setdefault("_envmap", data)
+    if sky_model == "hosek":
+        # true-spectral companion stack for the spectral renderer (the
+        # reference's SPECTRUM_SAMPLES>3 build)
+        ld.cfg_kw.setdefault("_envmap_spectral", sunskylib.bake_spectral(
+            typ, albedo=float(np.mean(alb_sky)), **kw))
+
+
 def _finish(ld):
     envmap = ld.cfg_kw.pop("_envmap", None)
+    envmap_spectral = ld.cfg_kw.pop("_envmap_spectral", None)
     if not ld.tris:
         # shapeless scenes are legal (e.g. a radiancemeter watching a
         # collimated emitter, data/tests/test_bidir_1.xml); the IR needs
@@ -1329,7 +1398,7 @@ def _finish(ld):
     )
     if envmap is not None:
         from . import envmap as envlib
-        scene = envlib.attach_envmap(scene, envmap)
+        scene = envlib.attach_envmap(scene, envmap, spectral=envmap_spectral)
     if ld.delta_emitters:
         scene = scene.replace(
             delta_emitters=ir.build_delta_emitters(ld.delta_emitters,
@@ -1337,6 +1406,10 @@ def _finish(ld):
         )
     if ld.medium is not None:
         scene = scene.replace(medium=ld.medium)
+    if ld.cloth_entries:
+        from ..models import cloth as clothlib
+        scene = scene.replace(cloth=clothlib.build_tables(
+            ld.cloth_entries, len(ld.materials), ld.cloth_slots, device=ld.device))
     # power-weighted (area, env, delta) emitter-group selection
     # (scene.cpp:131 m_emitterPDF analog; uniform split otherwise)
     from ..models import emitter as emitterlib

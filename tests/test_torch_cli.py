@@ -3,8 +3,9 @@ the JAX package's `cli.main` on the same scene file (the EXR pixels at the
 goldens' 1e-4; the statistics and the log lines alike), then the port's
 own branches, each against an in-process render of the same loaded scene:
 the -s/-d/-t/-D overrides, --integrator, --time-bins, -r progressive,
-the tiled film, -j over several scenes, checkpoint resume, --debug-fp, the
-exits naming ROADMAP A12 and A13, and the exit without a GPU and --cpu."""
+the tiled film, -j over several scenes, checkpoint resume, --debug-fp,
+pssmlt's and erpt's counts, the exits naming ROADMAP A12 and A13, and the
+exit without a GPU and --cpu."""
 import contextlib
 import dataclasses
 import functools
@@ -267,10 +268,13 @@ def test_debug_fp_names_first_bad_pixel(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,roadmap", [
-    (["--integrator", "mlt"], "A12"), (["--integrator", "pssmlt"], "A12"),
-    (["--integrator", "erpt"], "A12"), (["--mesh", "2,1"], "A13"),
+    (["--integrator", "mlt"], "A12"), (["--integrator", "mlt", "-r", "0"], "A12"),
+    (["--integrator", "mlt", "--time-bins", "2"], "A12"), (["--mesh", "2,1"], "A13"),
     (["--distributed", "localhost:1234,2,0"], "A13")])
 def test_unported_options_exit(tmp_path, argv, roadmap):
+    """Each exits before it renders or writes: path-space mlt (the rest of
+    A12) whatever render route the other flags pick, and the multi-device
+    flags (A13)."""
     p = write_scene(tmp_path)
     with pytest.raises(SystemExit, match=roadmap):
         run(p, "-o", tmp_path / "o.exr", "-q", *argv)
@@ -279,9 +283,39 @@ def test_unported_options_exit(tmp_path, argv, roadmap):
 
 @pytest.mark.parametrize("name", ["pssmlt", "mlt", "erpt"])
 def test_unported_integrators_exit(tmp_path, name):
-    """Every integrator name of the JAX CLI the port lacks exits naming A12."""
-    with pytest.raises(SystemExit, match="A12"):
-        cli.resolve_integrator(name)
+    """Of the JAX CLI's Metropolis integrators, pssmlt and erpt render the
+    film themselves now; mlt exits naming A12's remainder (ops/manifold.py
+    and integrators/mlt.py)."""
+    if name == "mlt":
+        with pytest.raises(SystemExit, match="A12: ops/manifold.py and integrators/mlt.py"):
+            cli.resolve_integrator(name)
+    else:
+        assert cli.resolve_integrator(name) == name
+
+
+@pytest.mark.parametrize("name,spp,steps", [("pssmlt", 16, 64), ("pssmlt", 100, 100),
+                                            ("erpt", 16, 64), ("erpt", 100, 100)])
+def test_mcmc_integrators_parameters(tmp_path, monkeypatch, name, spp, steps):
+    """--integrator pssmlt|erpt calls the port's render with the JAX CLI's
+    counts (mitsuba_tpu/cli.py:239-272): n_mutations or chain_length =
+    max(spp, 64), the other arguments at their defaults; the image it
+    returns is what the CLI writes. The renderer is patched: no render."""
+    from mitsuba_tpu_torch.integrators import erpt, pssmlt
+
+    mod, key = {"pssmlt": (pssmlt, "n_mutations"), "erpt": (erpt, "chain_length")}[name]
+    calls = []
+
+    def fake(scene, cam, cfg, **kw):
+        calls.append((cfg, kw))
+        return torch.full((cam.height, cam.width, 3), 0.25)
+
+    monkeypatch.setattr(mod, "render", fake)
+    p = write_scene(tmp_path)
+    assert run(p, "-o", tmp_path / "o.exr", "-q", "-s", spp, "--integrator", name) == 0
+    (cfg, kw), = calls
+    assert kw == {key: steps} and cfg.spp == spp
+    img = image.read_exr(tmp_path / "o.exr")
+    assert img.shape == (8, 8, 3) and np.all(img == 0.25)
 
 
 FOG = ('<medium type="homogeneous"><rgb name="sigmaS" value="0.6, 0.6, 0.6"/>'

@@ -1,6 +1,6 @@
 """Parity of the port's materials with the JAX package: the microfacet
 distributions, every ported BSDF family's eval_pdf and sample, the coating
-and blend adapters, and the family that still raises. Inputs are drawn
+and blend adapters, and a family code outside every table raising. Inputs are drawn
 with numpy from a seed and sent through both packages' functions (eager
 JAX on the CPU).
 
@@ -232,14 +232,20 @@ def test_microfacet_matches_jax():
 
 @pytest.mark.parametrize("fam", [tir.BSDF_IRAWAN])
 def test_unported_families_raise(fam):
-    name = tir.BSDF_NAMES[fam]
+    """Irawan, the last family that raised, now dispatches (its parity with
+    the JAX package on packed yarn records is tests/test_torch_cloth.py);
+    a family code outside every table still raises naming it."""
     sp = tB.ShadePoint(**{k: torch.as_tensor(v) for k, v in
                           _shade_point(np.random.RandomState(0), fam, 8).items()})
     w = torch.zeros(8, 3)
-    with pytest.raises(NotImplementedError, match=name):
-        tB.eval_pdf(sp, w, w, (fam,))
-    with pytest.raises(NotImplementedError, match=name):
-        tB.sample(sp, w, w[:, 0], w[:, :2], (fam,))
+    w[:, 2] = 1.0
+    assert torch.isfinite(tB.eval_pdf(sp, w, w, (fam,))[0]).all()
+    assert torch.isfinite(tB.sample(sp, w, w[:, 0], w[:, :2], (fam,))[1]).all()
+    unknown = max(tir.BSDF_NAMES) + 1
+    with pytest.raises(NotImplementedError, match=str(unknown)):
+        tB.eval_pdf(sp, w, w, (unknown,))
+    with pytest.raises(NotImplementedError, match=str(unknown)):
+        tB.sample(sp, w, w[:, 0], w[:, :2], (unknown,))
 
 
 GRAD_FAMILIES = [tir.BSDF_ROUGH_CONDUCTOR, tir.BSDF_ROUGH_DIELECTRIC,

@@ -75,11 +75,21 @@ def test_from_jax_round_trip(cornell):
 
 
 def test_from_jax_refuses_unported_fields(cornell):
-    """A field the port has no counterpart for raises, and so do the TPU
-    kernel's cluster tables without the BVH the port walks instead."""
-    jscene = cornell[0].replace(cloth=object())
-    with pytest.raises(NotImplementedError, match="cloth"):
-        tir.from_jax(jscene, device="cpu")
+    """The TPU kernel's cluster tables without the BVH the port walks
+    instead raise; the woven-cloth tables, the last JAX field without a
+    counterpart until models/cloth.py, come across leaf by leaf."""
+    from mitsuba_tpu.models import cloth as jcloth
+    from mitsuba_tpu_torch.models import cloth as tcloth
+
+    pat = jcloth.parse_weave(jcloth.PRESET_SILK)
+    pat.spec_norm = 2.5
+    jtab = jcloth.build_tables([(pat, 4.0, 3.0)], 3, {1: 0})
+    carried = tir.from_jax(cornell[0].replace(cloth=jtab), device="cpu").cloth
+    assert isinstance(carried, tcloth.ClothTables)
+    for f in tcloth.ClothTables._fields:
+        want = np.asarray(getattr(jtab, f))
+        got = getattr(carried, f).numpy()
+        assert got.dtype == want.dtype and np.array_equal(got, want), f
     jscene = cornell[0].replace(clusters=object())
     with pytest.raises(NotImplementedError, match="clusters without a bvh"):
         tir.from_jax(jscene, device="cpu")
@@ -150,15 +160,18 @@ def test_bsdf_gather_eval_sample(cornell):
 
 
 def test_unported_family_raises(cornell):
-    """The family that still raises names itself and what it waits for
-    (Irawan's cloth); the Hanrahan-Krueger slab gathers."""
+    """No family of the JAX package raises any more: the Hanrahan-Krueger
+    slab and Irawan's cloth gather (without cloth tables an Irawan row keeps
+    its material record, as in the JAX package); a family code outside
+    every table raises naming it."""
     mat = torch.zeros(4, dtype=torch.int32)
-    scene = cornell[2].replace(bsdf_families=(tir.BSDF_DIFFUSE, tir.BSDF_HK))
-    assert tB.gather_shade_point(scene, mat, torch.zeros(4, 2)).type.shape == (4,)
-    for fam, what in ((tir.BSDF_IRAWAN, "irawan.*cloth"),):
+    for fam in (tir.BSDF_HK, tir.BSDF_IRAWAN):
         scene = cornell[2].replace(bsdf_families=(tir.BSDF_DIFFUSE, fam))
-        with pytest.raises(NotImplementedError, match=what):
-            tB.gather_shade_point(scene, mat, torch.zeros(4, 2))
+        assert tB.gather_shade_point(scene, mat, torch.zeros(4, 2)).type.shape == (4,)
+    unknown = max(tir.BSDF_NAMES) + 1
+    scene = cornell[2].replace(bsdf_families=(tir.BSDF_DIFFUSE, unknown))
+    with pytest.raises(NotImplementedError, match=str(unknown)):
+        tB.gather_shade_point(scene, mat, torch.zeros(4, 2))
 
 
 def test_entry_points_default_to_the_card():
@@ -166,12 +179,13 @@ def test_entry_points_default_to_the_card():
     asks for the CPU (the CPU tests pass device="cpu")."""
     import inspect
 
-    from mitsuba_tpu_torch.models import medium as tmed
+    from mitsuba_tpu_torch.models import cloth as tcloth, medium as tmed
     from mitsuba_tpu_torch.scene import bvh as tbvh
 
     builders = (tir.build_scene, tir.from_jax, tb.cornell_box, tb.sphere_shadow,
                 tb.displaced_sphere, tS.make_camera, tS.camera_from_jax,
                 tbvh.build_bvh, tb.cornell_box_lit, tir.build_delta_emitters,
-                tmed.make_homogeneous, tmed.make_grid, tmed.make_hgrid)
+                tmed.make_homogeneous, tmed.make_grid, tmed.make_hgrid,
+                tcloth.build_tables)
     for fn in builders:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
