@@ -85,10 +85,23 @@ and 2^20 cloth lanes on the card against the CPU; pssmlt and erpt on the
 Cornell box at 256x256, depth 8, 2^15 chains x 64 mutations from 2^17
 bootstrap paths, against path.li's mean; the real command on a sunsky
 and cloth scene file, and the CLI's pssmlt and erpt.
+Then path-space Metropolis and the tools (the [mlt] group, MLT_PHASES),
+counted and twin checked the same way: the manifold walk on 2^18 lanes of
+tests/test_manifold.py's flat mirror against the closed form, and 4,096
+lanes on the card against the CPU; mlt.render on the Cornell box at
+256x256, depth 8 (the JAX defaults: 2^14 chains from 2^16 bootstrap
+paths; 64 mutations, five kernels), on caustic_box with a perfect mirror
+(depth 4, 48 mutations, six kernels: the manifold perturbation walks)
+and on tests/test_mlt_manifold.py's glass-sphere box (128x128, depth 5),
+each mean within its JAX test's bar of path.li's and every kernel's
+acceptance above 0; the CLI's mlt on [cli_cornell]'s files and its
+pssmlt route on a sunsky file; `mtsutil kdbench` on the Cornell box (B1)
+and the 70,034-triangle OBJ pair (B2); `mtsutil mtsimport` of a .dae
+written here, loaded and rendered.
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The line [total] gives the whole script's seconds and those of
 the materials, the media, the front-end, the CLI, the bidirectional, the
-photon and the daylight phases.
+photon, the daylight and the mlt phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -3882,6 +3895,446 @@ DAYLIGHT_PHASES = (phase_sunsky, phase_daylight_mesh, phase_irawan, phase_mcmc,
                    phase_cli_daylight)
 
 
+# --- path-space MLT and the tools -------------------------------------------------
+
+MANIFOLD_LANES = 1 << 18
+MANIFOLD_TWIN_LANES = 4096
+MANIFOLD_TOL = 2e-3              # tests/test_manifold.py:68-74
+MANIFOLD_MIN_OK = 0.999
+MANIFOLD_TWIN_TOL = 1e-6         # C10
+MLT_WIDTH = 256
+MLT_CHAINS = 1 << 14             # the JAX defaults (mlt.py:600-601)
+MLT_BOOTSTRAP = 1 << 16
+MLT_MUTATIONS = 64               # the CLI's count at -s 64 or below
+MLT_CAUSTIC_MUTATIONS = 48       # eight cycles of the six kernels
+MLT_CAUSTIC_DEPTH = 4
+MLT_GLASS_WIDTH = 128
+MLT_GLASS_DEPTH = 5
+MLT_GLASS_MUTATIONS = 48
+MLT_CLI_SPP = 16
+MLT_CLI_DAYLIGHT_WIDTH = 64
+MLT_RTOL = 0.06                  # tests/test_mlt.py:21
+MLT_CAUSTIC_RTOL = 0.12          # tests/test_mlt_manifold.py:30
+MLT_F_MIN_ACCEPT = 0.05          # tests/test_mlt_manifold.py:34
+MLT_GLASS_RTOL = 0.15            # tests/test_mlt_manifold.py:82
+MTSIMPORT_WIDTH = 64
+
+
+def mirror_floor_walk_case(n, seed):
+    """tests/test_manifold.py:50-80's flat-mirror protocol on n lanes: the
+    mirror z = 0 and the receiver z = 2 (10x10 quads), x0 above the mirror,
+    the target on the receiver, the chain started off its solution.
+    Returns (build_scene arguments, x0, x1, target, the closed-form
+    reflection points)."""
+    from mitsuba_tpu_torch.scene import ir, shapes
+
+    v, f, nrm, _ = shapes.rectangle()
+    v0 = v * 10.0
+    v0[:, 2] = 0.0
+    v1 = v * 10.0
+    v1[:, 2] = 2.0
+    mats = [{"type": ir.BSDF_CONDUCTOR, "eta": [0.2, 0.92, 1.1], "k": [3.9, 2.45, 2.14],
+             "specular": [1.0, 1.0, 1.0]},
+            {"type": ir.BSDF_DIFFUSE, "reflectance": [0.7, 0.7, 0.7]}]
+    parts = ((np.concatenate([v0, v1]), np.concatenate([f, f[:, ::-1] + 4]),
+              np.asarray([0, 0, 1, 1], np.int32), mats), np.concatenate([nrm, -nrm]))
+    rng = np.random.default_rng(seed)
+    x0 = np.column_stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
+                          rng.uniform(0.5, 1.5, n)]).astype(np.float32)
+    tgt = np.column_stack([rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
+                           np.full(n, 2.0)]).astype(np.float32)
+    x1 = np.column_stack([rng.uniform(-0.5, 0.5, n), rng.uniform(-0.5, 0.5, n),
+                          np.zeros(n)]).astype(np.float32)
+    x0m = x0 * np.asarray([1, 1, -1], np.float32)
+    s = (0.0 - x0m[:, 2]) / (tgt[:, 2] - x0m[:, 2])
+    return parts, x0, x1, tgt, x0m + s[:, None] * (tgt - x0m)
+
+
+def phase_manifold_walk(dev):
+    """[manifold_walk]: manifold.walk on MANIFOLD_LANES lanes of the
+    flat-mirror protocol on the card, every retrace through B1: the
+    converged share, the iterations, the chain vertex and the endpoint
+    against the closed form (the JAX test's 2e-3, on the converged lanes;
+    at least MANIFOLD_MIN_OK converged). Then the first MANIFOLD_TWIN_LANES
+    lanes walked on the card and on the CPU: ok and iterations equal,
+    positions within C10's bar. Returns B1's launches by path."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import manifold
+    from mitsuba_tpu_torch.scene import ir
+
+    (args, nrm), x0, x1, tgt, p_ref = mirror_floor_walk_case(MANIFOLD_LANES, 3)
+
+    def walk(device, n):
+        scene = ir.build_scene(*args, normals=nrm, device=device)
+        t = [torch.from_numpy(a[:n]).to(device) for a in (x0, x1)]
+        one = torch.ones((n,), dtype=torch.int32, device=device)
+        return manifold.walk(scene, t[0], t[1], torch.zeros((n, 1), dtype=torch.int32,
+                                                            device=device),
+                             one, torch.from_numpy(tgt[:n]).to(device))
+
+    keeping, read = counted()
+    with keeping:
+        res, walk_s = timed(lambda: walk(dev, MANIFOLD_LANES), dev)
+    launches, plain, kept = read()
+    if launches["closest"] == 0 or any(plain.values()):
+        raise AssertionError(f"manifold_walk bypassed B1: {launches}, plain {plain}")
+    checked = check_kept(bk, kept, entries=["closest_key"])
+    ok = res.ok.cpu().numpy()
+    if not ok.any():
+        raise AssertionError("manifold_walk: no lane converged")
+    err_end = np.abs(res.end_pos.cpu().numpy() - tgt)[ok].max()
+    err_chain = np.abs(res.chain_pos[:, 0].cpu().numpy() - p_ref)[ok].max()
+    n = MANIFOLD_TWIN_LANES
+    card, cpu = walk(dev, n), walk("cpu", n)
+    same_ok = bool(torch.equal(card.ok.cpu(), cpu.ok))
+    same_it = bool(torch.equal(card.iterations.cpu(), cpu.iterations))
+    pos_diff = max(float((card.chain_pos.cpu() - cpu.chain_pos).abs().max()),
+                   float((card.end_pos.cpu() - cpu.end_pos).abs().max()))
+    pos_ok = all(np.allclose(a.cpu().numpy(), b.numpy(), rtol=MANIFOLD_TWIN_TOL,
+                             atol=MANIFOLD_TWIN_TOL)
+                 for a, b in ((card.chain_pos, cpu.chain_pos), (card.end_pos, cpu.end_pos)))
+    say("manifold_walk", lanes=MANIFOLD_LANES, walk_s=round(walk_s, 4),
+        iterations=int(res.iterations[0]), converged_share=round(float(ok.mean()), 6),
+        max_err_end=f"{err_end:.3g}", max_err_chain=f"{err_chain:.3g}", bar=MANIFOLD_TOL,
+        b1_launches=launches, twin_checked_rays=checked, twin_mismatches=0)
+    say("manifold_walk_twin", lanes=n, ok_equal=same_ok, iterations_equal=same_it,
+        iterations=[int(card.iterations[0]), int(cpu.iterations[0])],
+        max_abs_diff=f"{pos_diff:.3g}", bar=MANIFOLD_TWIN_TOL)
+    if not (ok.mean() >= MANIFOLD_MIN_OK and err_end < MANIFOLD_TOL and err_chain < MANIFOLD_TOL):
+        raise AssertionError(f"manifold_walk: converged {ok.mean()}, errors {err_end}, "
+                             f"{err_chain}")
+    if not (same_ok and same_it and pos_ok):
+        raise AssertionError(f"manifold_walk: card against CPU: ok {same_ok}, iterations "
+                             f"{same_it}, positions {pos_diff}")
+    return path_launches("manifold_walk", launches)
+
+
+def mlt_maker(scene, cam, runs, **kw):
+    """make(cfg) of a bidir_cell: mlt.render with cfg.spp mutations; each
+    call appends its statistics to `runs`."""
+    from mitsuba_tpu_torch.integrators import mlt
+
+    def make(cfg):
+        img, st = mlt.render(scene, cam, cfg, n_mutations=cfg.spp, return_stats=True, **kw)
+        runs.append(st)
+        return img
+    return make
+
+
+def mlt_cell(name, scene, cam, dev, mutations, depth, rtol, n_modes, min_accept=None):
+    """One MLT render through bidir_cell (MLT_CHAINS chains from
+    MLT_BOOTSTRAP bootstrap paths; samples_per_s counts path evaluations:
+    bootstrap + chains x (mutations + 1)), its mean against path.li's at
+    64 spp within `rtol`; [<name>_check]: the acceptance of each of the
+    n_modes kernels above 0 (kernel F's above `min_accept` where given)
+    and b. Returns B1's launches by path."""
+    from mitsuba_tpu_torch.integrators import path
+
+    ref = ref_image(scene, cam, path.li, depth)
+    runs = []
+    evaluations = MLT_BOOTSTRAP + MLT_CHAINS * (mutations + 1)
+    _, launches = bidir_cell(name, mlt_maker(scene, cam, runs, n_chains=MLT_CHAINS,
+                                             n_bootstrap=MLT_BOOTSTRAP),
+                             _bidir_cfg(mutations, depth), dev, scene, cam, float(ref.mean()),
+                             rtol, samples=evaluations, chains=MLT_CHAINS,
+                             bootstrap=MLT_BOOTSTRAP, mutations=mutations,
+                             evaluations=evaluations)
+    acc = runs[0]["acceptance"].cpu().numpy()
+    say(f"{name}_check", acceptance=[round(float(a), 5) for a in acc],
+        b=round(float(runs[0]["b"]), 4), kernels=len(acc), f_bar=min_accept)
+    if len(acc) != n_modes or not (acc > 0).all() or (
+            min_accept is not None and not acc[5] > min_accept):
+        raise AssertionError(f"{name}: acceptance {acc}")
+    return launches
+
+
+def phase_mlt(dev):
+    """[mlt]: the headline Cornell box at MLT_WIDTH^2, depth 8, with the JAX
+    defaults (2^14 chains, 2^16 bootstrap paths) and MLT_MUTATIONS
+    mutations (five kernels), within tests/test_mlt.py's 6% of path.li's
+    mean. Returns B1's launches by path."""
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(MLT_WIDTH, MLT_WIDTH, device=dev)
+    return mlt_cell("mlt", scene, cam, dev, MLT_MUTATIONS, BIDIR_DEPTH, MLT_RTOL, 5)
+
+
+def phase_mlt_caustic(dev):
+    """[mlt_caustic]: caustic_box with a perfect mirror at MLT_WIDTH^2,
+    depth 4, six kernels (the manifold walk runs in kernel F) over
+    MLT_CAUSTIC_MUTATIONS mutations: the mean within 12% of path.li's and
+    F's acceptance above 0.05 (tests/test_mlt_manifold.py:17-34). Returns
+    B1's launches by path."""
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.caustic_box(MLT_WIDTH, MLT_WIDTH, rough=False, device=dev)
+    return mlt_cell("mlt_caustic", scene, cam, dev, MLT_CAUSTIC_MUTATIONS, MLT_CAUSTIC_DEPTH,
+                    MLT_CAUSTIC_RTOL, 6, MLT_F_MIN_ACCEPT)
+
+
+def glass_box(width, dev):
+    """tests/test_mlt_manifold.py:37-76's box: five white walls, a dark
+    emitter quad under the ceiling (radiance 40) and a smooth-glass sphere
+    (eta 1.5, 16 rings x 24 segments) at (0.5, 0.45, 0.5), radius 0.22."""
+    from mitsuba_tpu_torch.models import sensor
+    from mitsuba_tpu_torch.scene import ir, shapes
+
+    verts, tris, tri_mat, tri_rad = [], [], [], {}
+
+    def add_quad(p0, p1, p2, p3, mat_id, radiance=None):
+        base = len(verts)
+        verts.extend([p0, p1, p2, p3])
+        for t in ([base, base + 1, base + 2], [base, base + 2, base + 3]):
+            if radiance is not None:
+                tri_rad[len(tris)] = radiance
+            tris.append(t)
+            tri_mat.append(mat_id)
+
+    mats = [{"type": ir.BSDF_DIFFUSE, "reflectance": [0.7, 0.7, 0.7]},
+            {"type": ir.BSDF_DIELECTRIC, "eta": [1.5, 1.5, 1.5], "specular": [1.0, 1.0, 1.0],
+             "reflectance": [1.0, 1.0, 1.0]},
+            {"type": ir.BSDF_DIFFUSE, "reflectance": [0.0, 0.0, 0.0]}]
+    add_quad([0, 0, 0], [0, 0, 1], [1, 0, 1], [1, 0, 0], 0)      # floor
+    add_quad([0, 1, 0], [1, 1, 0], [1, 1, 1], [0, 1, 1], 0)      # ceiling
+    add_quad([0, 0, 1], [0, 1, 1], [1, 1, 1], [1, 0, 1], 0)      # back
+    add_quad([0, 0, 0], [0, 1, 0], [0, 1, 1], [0, 0, 1], 0)      # left
+    add_quad([1, 0, 0], [1, 0, 1], [1, 1, 1], [1, 1, 0], 0)      # right
+    add_quad([0.35, 0.999, 0.35], [0.65, 0.999, 0.35], [0.65, 0.999, 0.65],
+             [0.35, 0.999, 0.65], 2, radiance=[40.0, 40.0, 40.0])   # light
+    v = np.asarray(verts, np.float32)
+    f = np.asarray(tris, np.int32)
+    sv, sf, _, _ = shapes.sphere(center=(0.5, 0.45, 0.5), radius=0.22, rings=16, segments=24)
+    scene = ir.build_scene(np.concatenate([v, sv]), np.concatenate([f, sf + len(v)]),
+                           np.asarray(tri_mat + [1] * len(sf), np.int32), mats,
+                           tri_radiance=tri_rad, device=dev)
+    cam = sensor.make_camera(origin=[0.5, 0.5, -1.4], target=[0.5, 0.5, 0.5], fov_x=39.3077,
+                             width=width, height=width, device=dev)
+    return scene, cam
+
+
+def phase_mlt_glass(dev):
+    """[mlt_glass]: the glass-sphere box at MLT_GLASS_WIDTH^2, depth 5,
+    six kernels over MLT_GLASS_MUTATIONS mutations: two-vertex refraction
+    chains (enter and exit) through F; the mean within 15% of path.li's
+    (tests/test_mlt_manifold.py:79-83). Returns B1's launches by path."""
+    scene, cam = glass_box(MLT_GLASS_WIDTH, dev)
+    return mlt_cell("mlt_glass", scene, cam, dev, MLT_GLASS_MUTATIONS, MLT_GLASS_DEPTH,
+                    MLT_GLASS_RTOL, 6)
+
+
+def phase_cli_mlt(dev):
+    """[cli_mlt]: [cli_cornell]'s scene files with --integrator mlt -s 16 (64
+    mutations, the JAX defaults' chains and bootstrap paths) by the real
+    command as a subprocess, its mean within [mlt]'s 6% of path.li's render
+    of the loaded scene. [cli_mlt_daylight]: a sunsky scene file with
+    --integrator mlt by cli.main in process (B1's launches counted and
+    twin checked): the JAX CLI's route for a scene with an environment,
+    pssmlt, printed. Returns B1's launches by path."""
+    import tempfile
+
+    from mitsuba_tpu_torch.integrators import common, mlt, path, pssmlt
+    from mitsuba_tpu_torch.io import image
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import xml
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        xml_path = cli_cornell_files(tmp, dev)[0]
+        loaded, lcam, lcfg, _ = xml.load_xml(xml_path, device=dev)
+        ref = float(common.render(loaded, lcam, path.li, lcfg).mean())
+        wall = run_cli_subprocess(xml_path, tmp / "mlt.exr",
+                                  ["-s", str(MLT_CLI_SPP), "--integrator", "mlt"])
+        got = image.read_exr(tmp / "mlt.exr")
+        mean = float(got.mean())
+        say("cli_mlt", resolution=f"{lcam.width}x{lcam.height}", spp=MLT_CLI_SPP,
+            mutations=max(MLT_CLI_SPP, 64), subprocess_wall_s=round(wall, 3),
+            mean_radiance=round(mean, 6), path_mean=round(ref, 6),
+            rel_to_path=round(abs(mean - ref) / ref, 5), bar=MLT_RTOL)
+        if not (np.isfinite(got).all() and abs(mean - ref) <= MLT_RTOL * ref):
+            raise AssertionError(f"cli_mlt: mean {mean} against path's {ref}")
+
+        day = tmp / "daylight.xml"
+        day.write_text(daylight_xml(MLT_CLI_DAYLIGHT_WIDTH, MLT_CLI_SPP, IRAWAN_DEPTH,
+                                    GROUND_XML + CUBE_XML))
+        routes = []
+
+        def route(name, fn):
+            def call(*args, **kw):
+                routes.append(name)
+                return fn(*args, **kw)
+            return call
+
+        with mock.patch.object(mlt, "render", route("mlt", mlt.render)), \
+                mock.patch.object(pssmlt, "render", route("pssmlt", pssmlt.render)):
+            launches, checked, times = run_cli_counted(
+                bk, [day, "-o", tmp / "day.exr", "--integrator", "mlt"], dev)
+        got = image.read_exr(tmp / "day.exr")
+        say("cli_mlt_daylight", resolution=f"{MLT_CLI_DAYLIGHT_WIDTH}x{MLT_CLI_DAYLIGHT_WIDTH}",
+            spp=MLT_CLI_SPP, route=routes, **times, b1_launches=launches,
+            twin_checked_rays=checked, twin_mismatches=0,
+            mean_radiance=round(float(got.mean()), 6))
+        if routes != ["pssmlt"] or not (np.isfinite(got).all() and got.mean() > 0):
+            raise AssertionError(f"cli_mlt_daylight: route {routes}, mean {got.mean()}")
+        out.update(path_launches("cli_mlt_daylight", launches))
+    return out
+
+
+def kdbench_counted(mod, argv, dev):
+    """mtsutil's kdbench in process with `mod`'s closest-hit launches
+    counted from zero and the first launch per batch size rerun through
+    the plain twin. Returns (its result, launches, twin-checked sizes)."""
+    import torch
+
+    from mitsuba_tpu_torch import mtsutil
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+
+    for counts in (bk, bvk):
+        counts.reset_counts()
+    keeping, kept = keeping_launches(mod)
+    with keeping:
+        res = mtsutil.tool_kdbench([str(a) for a in argv])
+    torch.cuda.synchronize(dev)
+    launches, plain = dict(mod.KERNEL_LAUNCHES), {**bk.PLAIN_CALLS, **bvk.PLAIN_CALLS}
+    other = bvk if mod is bk else bk
+    if launches["closest"] == 0 or any(plain.values()) or any(other.KERNEL_LAUNCHES.values()):
+        raise AssertionError(f"kdbench {argv}: launches {launches}, plain {plain}, other "
+                             f"{other.KERNEL_LAUNCHES}")
+    return res, launches, check_kept(mod, kept, entries=["closest_key"])
+
+
+def phase_kdbench(dev):
+    """[kdbench]: `python -m mitsuba_tpu_torch.mtsutil kdbench` (2^20 rays,
+    the tool's default) on the built-in Cornell box, by the real command
+    and in process (B1's launches counted and twin checked), then in
+    process on the 70,034-triangle OBJ pair of [cli_mesh]'s scene file
+    (the tool attaches the BVH: B2). Prints rays/s and the share of rays
+    that hit (the protocol's rays run tangent to the bounding sphere, so
+    most miss a round object). Returns the launches by path."""
+    import os
+    import tempfile
+
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.scene import builtin
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "mitsuba_tpu_torch.mtsutil", "kdbench"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0 or "M rays/s" not in res.stdout:
+        raise AssertionError(f"mtsutil kdbench exited {res.returncode}:\n{res.stderr[-4000:]}")
+    say("kdbench_command", line=res.stdout.strip(), subprocess_wall_s=round(wall, 3))
+    out = {}
+    bench, launches, checked = kdbench_counted(bk, [], dev)
+    say("kdbench_cornell", tris=bench["triangles"], rays=bench["rays"],
+        rays_per_s=round(bench["rays_per_s"]), ms_per_batch=round(bench["ms_per_batch"], 4),
+        hit_share=round(bench["hit_share"], 4),
+        b1_launches=launches, twin_checked_rays=checked, twin_mismatches=0)
+    out.update(path_launches("kdbench_cornell", launches))
+    scene, cam = builtin.displaced_sphere(width=CLI_MESH_WIDTH, height=CLI_MESH_WIDTH,
+                                          device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        xml_path, groups = write_scene_files(
+            tmp, scene, '<sensor type="perspective"/>', '<integrator type="path"/>')
+        bench, launches, checked = kdbench_counted(bvk, [xml_path], dev)
+    say("kdbench_mesh", tris=bench["triangles"], obj_files=len(groups), rays=bench["rays"],
+        rays_per_s=round(bench["rays_per_s"]), ms_per_batch=round(bench["ms_per_batch"], 4),
+        hit_share=round(bench["hit_share"], 4),
+        bvh_launches=launches, twin_checked_rays=checked, twin_mismatches=0)
+    if bench["triangles"] != scene.num_triangles:
+        raise AssertionError(f"kdbench_mesh: {bench['triangles']} triangles")
+    out.update(path_launches("kdbench_mesh", launches, "bvh"))
+    return out
+
+
+def dae_text(parts):
+    """A COLLADA 1.4 document (Y_UP) with one <geometry> per (name,
+    positions (V,3), triangles (T,3)) part, as <triangles> of VERTEX
+    indices, each instanced by a node without transforms."""
+    geoms, nodes = [], []
+    for name, pos, tris in parts:
+        floats = " ".join(repr(float(x)) for x in pos.ravel())
+        idx = " ".join(str(int(i)) for i in tris.ravel())
+        geoms.append(
+            f'<geometry id="{name}" name="{name}"><mesh><source id="{name}-pos">'
+            f'<float_array id="{name}-arr" count="{pos.size}">{floats}</float_array>'
+            f'<technique_common><accessor source="#{name}-arr" count="{len(pos)}" stride="3"/>'
+            f'</technique_common></source><vertices id="{name}-v"><input semantic="POSITION" '
+            f'source="#{name}-pos"/></vertices><triangles count="{len(tris)}"><input '
+            f'semantic="VERTEX" source="#{name}-v" offset="0"/><p>{idx}</p></triangles>'
+            f'</mesh></geometry>')
+        nodes.append(f'<node id="n-{name}"><instance_geometry url="#{name}"/></node>')
+    return ('<?xml version="1.0" encoding="utf-8"?>\n<COLLADA xmlns="http://www.collada.org/'
+            '2005/11/COLLADASchema" version="1.4.1"><asset><up_axis>Y_UP</up_axis></asset>'
+            f'<library_geometries>{"".join(geoms)}</library_geometries><library_visual_scenes>'
+            f'<visual_scene id="s">{"".join(nodes)}</visual_scene></library_visual_scenes>'
+            '</COLLADA>\n')
+
+
+def phase_mtsimport(dev):
+    """[mtsimport]: a .dae written here (a 32x64 sphere and a ground quad in
+    front of the default sensor) through `python -m
+    mitsuba_tpu_torch.mtsutil mtsimport`; the scene file it writes loads
+    through load_xml on the card with the .dae's triangle count and its
+    vertices (as a set: the importer de-indexes them) bit for bit, and
+    renders at MTSIMPORT_WIDTH^2 x 16 spp under its constant light through
+    path.li on B1 (counted and twin checked), finite and lit. Returns B1's
+    launches by path."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import shapes, xml
+
+    sv, sf, _, _ = shapes.sphere(center=(0.0, 0.0, 4.0), radius=1.0, rings=32, segments=64)
+    qv = np.asarray([[-3, -1, 1], [3, -1, 1], [3, -1, 8], [-3, -1, 8]], np.float32)
+    qf = np.asarray([[0, 2, 1], [0, 3, 2]], np.int32)
+    parts = (("sphere", sv.astype(np.float32), sf), ("ground", qv, qf))
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "model.dae").write_text(dae_text(parts))
+        res = subprocess.run([sys.executable, "-m", "mitsuba_tpu_torch.mtsutil", "mtsimport",
+                              str(tmp / "model.dae"), str(tmp / "scene.xml")], cwd=ROOT,
+                             env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        if res.returncode != 0:
+            raise AssertionError(f"mtsimport exited {res.returncode}:\n{res.stderr[-4000:]}")
+        scene, cam, cfg, integ = xml.load_xml(tmp / "scene.xml", device=dev)
+    want_tris = sum(len(p[2]) for p in parts)
+    used = np.concatenate([p[1][np.unique(p[2])] for p in parts])
+    got = scene.vertices.cpu().numpy()
+    same = (scene.num_triangles == want_tris and got.shape == used.shape
+            and np.array_equal(np.unique(got, axis=0), np.unique(used, axis=0)))
+    cam = cam.replace(width=MTSIMPORT_WIDTH, height=MTSIMPORT_WIDTH)
+    keeping, read = counted()
+    with keeping:
+        img, render_s = timed(lambda: common.render(scene, cam, path.li,
+                                                    dataclasses.replace(cfg, spp=16)), dev)
+    launches, plain, kept = read()
+    require_b1("mtsimport", launches, plain)
+    checked = check_kept(bk, kept)
+    say("mtsimport", line=res.stdout.strip(), integrator=integ, tris=scene.num_triangles,
+        dae_tris=want_tris, vertices_equal=same, resolution=f"{cam.width}x{cam.height}", spp=16,
+        render_s=round(render_s, 4), mean_radiance=round(float(img.mean()), 6),
+        b1_launches=launches, twin_checked_rays=checked, twin_mismatches=0)
+    require_finite("mtsimport", img, (MTSIMPORT_WIDTH, MTSIMPORT_WIDTH, 3))
+    if not (same and float(img.mean()) > 0.05):
+        raise AssertionError(f"mtsimport: load equal {same}, mean {float(img.mean())}")
+    return path_launches("mtsimport", launches)
+
+
+MLT_PHASES = (phase_manifold_walk, phase_mlt, phase_mlt_caustic, phase_mlt_glass, phase_cli_mlt,
+              phase_kdbench, phase_mtsimport)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3980,6 +4433,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths.update(phase(dev))
         daylight_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
+    t_mlt = time.perf_counter()
+    mlt_s = {}
+    for phase in MLT_PHASES:
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        mlt_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
     t_end = time.perf_counter()
     say("total", seconds=round(t_end - t_start, 3),
         materials_seconds=round(t_media - t_materials, 3),
@@ -3988,7 +4447,8 @@ def main(argv=None) -> int:
         cli_seconds=round(t_bidir - t_cli, 3), cli_phase_seconds=cli_s,
         bidir_seconds=round(t_photon - t_bidir, 3), bidir_phase_seconds=bidir_s,
         photon_seconds=round(t_daylight - t_photon, 3), photon_phase_seconds=photon_s,
-        daylight_seconds=round(t_end - t_daylight, 3), daylight_phase_seconds=daylight_s)
+        daylight_seconds=round(t_mlt - t_daylight, 3), daylight_phase_seconds=daylight_s,
+        mlt_seconds=round(t_end - t_mlt, 3), mlt_phase_seconds=mlt_s)
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

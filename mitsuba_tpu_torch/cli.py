@@ -34,10 +34,9 @@ _LI_NAMES = {"path": ("path", "li"), "mypath": ("path", "li"), "mypath2": ("path
              "vpl": ("vpl", "li"), "spectral": ("spectral", "li"),
              "spectral_path": ("spectral", "li")}
 # the integrators that render the whole film themselves: resolve_integrator
-# returns the name. The JAX CLI's path-space `mlt` waits for the rest of
-# ROADMAP A12 (ops/manifold.py and integrators/mlt.py).
+# returns the name
 _FILM_RENDERERS = ("ptracer", "multichannel", "sppm", "ppm", "photonmapper", "bre",
-                   "irrcache", "pssmlt", "erpt")
+                   "irrcache", "pssmlt", "erpt", "mlt")
 
 
 def build_argparser():
@@ -59,7 +58,7 @@ def build_argparser():
     ap.add_argument("--integrator", default=None,
                     help="override integrator (path, direct, volpath, bdpt, lvcbpt, "
                          "vpl, ptracer, multichannel, sppm, ppm, photonmapper, bre, "
-                         "irrcache, pssmlt, erpt, spectral, depth, normal, ao, "
+                         "irrcache, pssmlt, erpt, mlt, spectral, depth, normal, ao, "
                          "motion, ...)")
     ap.add_argument("--mesh", default=None, metavar="DP,SP",
                     help="multi-device rendering: not ported yet (ROADMAP A13)")
@@ -98,15 +97,13 @@ def build_argparser():
 def resolve_integrator(name: str):
     """The port's Li function for an integrator name, or the name itself for
     the integrators that render the whole film themselves (ptracer,
-    multichannel, the photon mappers, bre, irrcache, pssmlt, erpt); exits
-    naming ROADMAP A12 for every integrator not ported yet (path-space mlt:
-    ops/manifold.py and integrators/mlt.py)."""
+    multichannel, the photon mappers, bre, irrcache, pssmlt, erpt, mlt);
+    exits listing the names it knows for any other."""
     if name in _FILM_RENDERERS:
         return name
     if name not in _LI_NAMES:
-        raise SystemExit(
-            f"integrator '{name}' is not ported yet (ROADMAP A12: ops/manifold.py "
-            f"and integrators/mlt.py); have: {sorted(_LI_NAMES) + list(_FILM_RENDERERS)}")
+        raise SystemExit(f"unknown integrator '{name}'; have: "
+                         f"{sorted(_LI_NAMES) + list(_FILM_RENDERERS)}")
     import importlib
 
     module, fn = _LI_NAMES[name]
@@ -327,7 +324,10 @@ def _render_one(args):
 
 def render_film(name, scene, cam, cfg):
     """The image of an integrator that renders the whole film itself, with
-    the JAX CLI's pass, photon and mutation counts from cfg.spp."""
+    the JAX CLI's pass, photon and mutation counts from cfg.spp. Path-space
+    mlt renders area-lit scenes; a scene with an environment or delta
+    lights takes pssmlt, as the JAX CLI routes it (mlt's paths end on area
+    emitters)."""
     if name == "ptracer":
         from .integrators import ptracer
 
@@ -344,6 +344,16 @@ def render_film(name, scene, cam, cfg):
         from .integrators import bre
 
         return bre.render(scene, cam, cfg)
+    if name == "mlt":
+        if scene.has_area and not (scene.has_env or scene.delta_emitters is not None):
+            from .integrators import mlt
+
+            return mlt.render(scene, cam, cfg, n_mutations=max(cfg.spp, 64))
+        from .core import logger as loglib
+
+        loglib.Log(loglib.EInfo, "mlt: the scene has an environment or delta lights, "
+                   "rendering with pssmlt")
+        name = "pssmlt"
     if name == "pssmlt":
         from .integrators import pssmlt
 

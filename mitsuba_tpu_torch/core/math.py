@@ -102,6 +102,11 @@ def reflect_local(wi: torch.Tensor) -> torch.Tensor:
     return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
 
 
+def reflect(wi: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Reflect wi (pointing away from the surface) about n."""
+    return 2.0 * dot(wi, n, keepdims=True) * n - wi
+
+
 def refract_local(wi: torch.Tensor, eta: torch.Tensor, cos_theta_t: torch.Tensor):
     """Refraction in the local frame given the transmitted cosine; eta is
     the relative IOR of the actual transmission direction."""

@@ -4,8 +4,9 @@ goldens' 1e-4; the statistics and the log lines alike), then the port's
 own branches, each against an in-process render of the same loaded scene:
 the -s/-d/-t/-D overrides, --integrator, --time-bins, -r progressive,
 the tiled film, -j over several scenes, checkpoint resume, --debug-fp,
-pssmlt's and erpt's counts, the exits naming ROADMAP A12 and A13, and the
-exit without a GPU and --cpu."""
+pssmlt's, erpt's and mlt's counts, mlt's pssmlt route on an env-lit
+scene, the exits naming ROADMAP A13, and the exit without a GPU and
+--cpu."""
 import contextlib
 import dataclasses
 import functools
@@ -268,29 +269,85 @@ def test_debug_fp_names_first_bad_pixel(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,roadmap", [
-    (["--integrator", "mlt"], "A12"), (["--integrator", "mlt", "-r", "0"], "A12"),
-    (["--integrator", "mlt", "--time-bins", "2"], "A12"), (["--mesh", "2,1"], "A13"),
-    (["--distributed", "localhost:1234,2,0"], "A13")])
+    (["--mesh", "2,1"], "A13"), (["--distributed", "localhost:1234,2,0"], "A13")])
 def test_unported_options_exit(tmp_path, argv, roadmap):
-    """Each exits before it renders or writes: path-space mlt (the rest of
-    A12) whatever render route the other flags pick, and the multi-device
-    flags (A13)."""
+    """Each exits before it renders or writes: the multi-device flags
+    (A13)."""
     p = write_scene(tmp_path)
     with pytest.raises(SystemExit, match=roadmap):
         run(p, "-o", tmp_path / "o.exr", "-q", *argv)
     assert not (tmp_path / "o.exr").exists()
 
 
+@pytest.mark.parametrize("argv", [[], ["-r", "0"], ["--time-bins", "2"]])
+def test_mlt_with_render_flags(tmp_path, monkeypatch, argv):
+    """--integrator mlt renders the film once through mlt.render with the
+    JAX CLI's count (n_mutations = max(spp, 64), the other arguments at
+    their defaults), whatever render route -r or --time-bins would pick
+    for an Li integrator: the JAX CLI takes its film renderers before those
+    branches (mitsuba_tpu/cli.py:244-257). The renderer is patched: no
+    render."""
+    from mitsuba_tpu_torch.integrators import mlt
+
+    calls = []
+
+    def fake(scene, cam, cfg, **kw):
+        calls.append(kw)
+        return torch.full((cam.height, cam.width, 3), 0.5)
+
+    monkeypatch.setattr(mlt, "render", fake)
+    p = write_scene(tmp_path)
+    assert run(p, "-o", tmp_path / "o.exr", "-q", "--integrator", "mlt", *argv) == 0
+    assert calls == [{"n_mutations": 64}]
+    assert np.all(image.read_exr(tmp_path / "o.exr") == 0.5)
+
+
+def test_mlt_renders_like_the_library(tmp_path, monkeypatch):
+    """--integrator mlt on the area-lit 8x8 scene: the EXR equals
+    mlt.render of the loaded scene with the same config and the CLI's 64
+    mutations (both at 256 chains and 1,024 bootstrap paths, set through
+    the library's keywords)."""
+    from mitsuba_tpu_torch.integrators import mlt
+
+    small = dict(n_chains=256, n_bootstrap=1024)
+    monkeypatch.setattr(mlt, "render", functools.partial(mlt.render, **small))
+    p = write_scene(tmp_path)
+    assert run(p, "-o", tmp_path / "o.exr", "-q", "--integrator", "mlt") == 0
+    scene, cam, cfg, _ = xml.load_xml(p, device="cpu")
+    want = mlt.render(scene, cam, cfg, n_mutations=64).numpy()
+    got = image.read_exr(tmp_path / "o.exr")
+    assert got.shape == (8, 8, 3) and np.isfinite(got).all() and got.mean() > 0
+    np.testing.assert_array_equal(got, want)
+
+
+def test_mlt_env_lit_takes_pssmlt(tmp_path, monkeypatch):
+    """A scene with an environment light takes pssmlt under --integrator
+    mlt, with pssmlt's count (mitsuba_tpu/cli.py:246-257), and says so in
+    the log. The renderers are patched: no render."""
+    from mitsuba_tpu_torch.integrators import mlt, pssmlt
+
+    calls = []
+    monkeypatch.setattr(mlt, "render", lambda *a, **kw: pytest.fail("mlt on an env-lit scene"))
+    monkeypatch.setattr(pssmlt, "render", lambda scene, cam, cfg, **kw: (
+        calls.append(kw), torch.full((cam.height, cam.width, 3), 0.25))[1])
+    p = write_scene(tmp_path, extra='<emitter type="constant"><rgb name="radiance" '
+                                    'value="0.5, 0.5, 0.5"/></emitter>')
+    with captured(loglib.get_logger()) as (log, _):
+        assert run(p, "-o", tmp_path / "o.exr", "--integrator", "mlt", "-s", "100") == 0
+    assert calls == [{"n_mutations": 100}]
+    assert "rendering with pssmlt" in log.getvalue()
+    assert np.all(image.read_exr(tmp_path / "o.exr") == 0.25)
+
+
 @pytest.mark.parametrize("name", ["pssmlt", "mlt", "erpt"])
 def test_unported_integrators_exit(tmp_path, name):
-    """Of the JAX CLI's Metropolis integrators, pssmlt and erpt render the
-    film themselves now; mlt exits naming A12's remainder (ops/manifold.py
-    and integrators/mlt.py)."""
-    if name == "mlt":
-        with pytest.raises(SystemExit, match="A12: ops/manifold.py and integrators/mlt.py"):
-            cli.resolve_integrator(name)
-    else:
-        assert cli.resolve_integrator(name) == name
+    """Every Metropolis integrator of the JAX CLI renders the film itself
+    now (pssmlt, erpt, path-space mlt); a name the port does not know exits
+    listing the names it has, naming no queue."""
+    assert cli.resolve_integrator(name) == name
+    with pytest.raises(SystemExit, match=r"unknown integrator 'no_such'; have: .*'mlt'") as e:
+        cli.resolve_integrator("no_such")
+    assert "ROADMAP" not in str(e.value)
 
 
 @pytest.mark.parametrize("name,spp,steps", [("pssmlt", 16, 64), ("pssmlt", 100, 100),

@@ -221,7 +221,8 @@ def test_port_imports_no_jax():
             "io/vol.py", "scene/shapes.py", "scene/upgrade.py", "scene/voxelize.py",
             "scene/xml.py", "cli.py", "__main__.py", "ops/hashgrid.py", "integrators/sppm.py",
             "integrators/photonmapper.py", "integrators/bre.py", "integrators/irrcache.py",
-            "integrators/spectral.py", "utils/adaptive.py"} <= names
+            "integrators/spectral.py", "utils/adaptive.py", "ops/manifold.py",
+            "integrators/mlt.py", "io/collada.py", "mtsutil.py"} <= names
     for f in files + [ROOT / "chip_smoke.py"]:
         text = f.read_text()
         assert not pat.search(text), f
