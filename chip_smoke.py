@@ -98,10 +98,24 @@ acceptance above 0; the CLI's mlt on [cli_cornell]'s files and its
 pssmlt route on a sunsky file; `mtsutil kdbench` on the Cornell box (B1)
 and the 70,034-triangle OBJ pair (B2); `mtsutil mtsimport` of a .dae
 written here, loaded and rendered.
+Then sharded and multi-process rendering, the dipole, the chi-square
+harness and the native binding (the [parallel] group, PARALLEL_PHASES):
+render_sharded on a one-rank NCCL group in process at mesh (1, 1), the
+Cornell box at 256x256 x 64 spp, depth 8, with the box and the Gaussian
+film, and the 70,034-triangle sphere on B2, each equal to common.render's
+image; three train_step calls at 256x256 x 4 spp, the loss falling; two
+processes of the real command with --distributed sharing the card (gloo)
+and --mesh 1,1 (NCCL) in process, its B1 launches counted and twin
+checked, each image equal to the one-process CLI image; the dipole on the Cornell box's short block (4,096 cache points,
+the gather at the 65,536 first hits, single scattering with exact NEE),
+the slab fixture's exact/classical ratio, and 1,024 queries on the card
+against the CPU; spherical_chi2 at 2^20 samples for the eight new warps
+and tests/test_bsdf.py's BSDF records; the native OBJ parse and BVH build
+of the 70,034-triangle pair against the Python ones, both timed.
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The line [total] gives the whole script's seconds and those of
 the materials, the media, the front-end, the CLI, the bidirectional, the
-photon, the daylight and the mlt phases.
+photon, the daylight, the mlt and the parallel phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -4335,6 +4349,591 @@ MLT_PHASES = (phase_manifold_walk, phase_mlt, phase_mlt_caustic, phase_mlt_glass
               phase_kdbench, phase_mtsimport)
 
 
+# --- sharded and multi-process rendering, subsurface, chi-square, native -------
+
+PARALLEL_WIDTH = 256
+SHARDED_SPP = 64                 # the Cornell headline's width at 64 spp, depth 8
+SHARDED_DEPTH = 8
+SHARDED_RTOL, SHARDED_ATOL = 1e-4, 1e-5   # tests/test_sharded.py
+TRAIN_SPP, TRAIN_DEPTH, TRAIN_STEPS = 4, 3, 3   # tests/test_sharded.py:45-66 at full width
+TRAIN_LR, TRAIN_TARGET = 0.1, 0.05
+DIST_CLI_TOL = 1e-4              # tests/test_torch_cli.py's RENDER_TOL
+SSS_POINTS = 4096
+SSS_IRRADIANCE_SAMPLES = 8
+SSS_SINGLE_SAMPLES = 4
+SSS_TWIN_POINTS = 1024
+SSS_SLAB_SAMPLES = 32
+SSS_RATIO = (0.3, 3.0)           # tests/test_subsurface.py:178
+CHI2_SAMPLES = 1 << 20
+WARP_SIGNIFICANCE = 0.0025       # spherical_chi2's default (tests/test_warp.py)
+BSDF_SIGNIFICANCE = 0.001        # tests/test_bsdf.py:80
+CHI2_MASS_TOL = 2e-2             # tests/test_warp.py:18
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def world_one_group():
+    """A one-rank process group in this process (NCCL: the rank has its
+    card); yields its backend and leaves the group on exit."""
+    import torch.distributed as dist
+
+    from mitsuba_tpu_torch.parallel import render_sharded as rs
+
+    _, backend = rs.start_group(f"tcp://127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        yield backend
+    finally:
+        dist.destroy_process_group()
+
+
+def require_equal_images(what, img, ref, rtol, atol):
+    """img against ref at (rtol, atol); returns the largest difference."""
+    import torch
+
+    diff = float((img - ref).abs().max())
+    if img.shape != ref.shape or not torch.allclose(img, ref, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: max diff {diff} against the one-device render")
+    return diff
+
+
+def phase_sharded(dev):
+    """[sharded]: the Cornell box at PARALLEL_WIDTH^2 x SHARDED_SPP, depth
+    SHARDED_DEPTH, through render_sharded at mesh (1, 1) on a one-rank NCCL
+    group in process, then [sharded_gaussian] with the Gaussian filter
+    (the full-film path); [sharded_mesh]: the 70,034-triangle displaced
+    sphere at CLI_MESH_WIDTH^2 x 16 spp (B2). Each counted like a
+    bidir_cell, its image equal to common.render's of the same config at
+    tests/test_sharded.py's bar. [sharded_train]: TRAIN_STEPS steps of
+    train_step on the Cornell box at PARALLEL_WIDTH^2 x TRAIN_SPP, depth
+    TRAIN_DEPTH (every float leaf of the scene): the loss falls, every
+    update is finite; then one more step profiled (its busy share).
+    Returns the launches by path."""
+    from mitsuba_tpu_torch.film import film
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.parallel import render_sharded as rs
+    from mitsuba_tpu_torch.scene import builtin
+
+    out = {}
+    with world_one_group() as backend:
+        mesh = rs.make_mesh(1, sp=1)
+        scene, cam = builtin.cornell_box(PARALLEL_WIDTH, PARALLEL_WIDTH, device=dev)
+        for name, filt in (("sharded", film.FILTER_BOX), ("sharded_gaussian",
+                                                           film.FILTER_GAUSSIAN)):
+            cfg = common.RenderConfig(spp=SHARDED_SPP, max_depth=SHARDED_DEPTH, rr_depth=5,
+                                      seed=0, filter=filt)
+            ref = common.render(scene, cam, path.li, cfg)
+            img, launches = bidir_cell(
+                name, lambda c: rs.render_sharded(scene, cam, path.li, c, mesh), cfg, dev,
+                scene, cam, backend=backend, mesh="(1, 1)", filter=film.FILTER_NAMES[filt])
+            diff = require_equal_images(name, img, ref, SHARDED_RTOL, SHARDED_ATOL)
+            say(f"{name}_check", max_abs_diff=diff, bar=[SHARDED_RTOL, SHARDED_ATOL])
+            out.update(launches)
+
+        mscene, mcam = builtin.displaced_sphere(width=CLI_MESH_WIDTH, height=CLI_MESH_WIDTH,
+                                                device=dev)
+        cfg = common.RenderConfig(spp=16, max_depth=4, rr_depth=3, seed=0)
+        ref = common.render(mscene, mcam, path.li, cfg)
+        img, launches = bidir_cell(
+            "sharded_mesh", lambda c: rs.render_sharded(mscene, mcam, path.li, c, mesh), cfg,
+            dev, mscene, mcam, kernel="b2", backend=backend, mesh="(1, 1)")
+        diff = require_equal_images("sharded_mesh", img, ref, SHARDED_RTOL, SHARDED_ATOL)
+        say("sharded_mesh_check", max_abs_diff=diff, bar=[SHARDED_RTOL, SHARDED_ATOL])
+        out.update(launches)
+        out.update(train_cell(scene, cam, mesh, backend, dev))
+    return out
+
+
+def train_cell(scene, cam, mesh, backend, dev):
+    """[sharded_train] (phase_sharded): TRAIN_STEPS train_step calls with
+    B1 counted and twin checked, the losses, each step's seconds, the
+    update's finiteness and step_peak_gb; then one more step profiled."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.parallel import render_sharded as rs
+
+    cfg = common.RenderConfig(spp=TRAIN_SPP, max_depth=TRAIN_DEPTH, rr_depth=5, seed=1)
+    target = torch.full((cam.height, cam.width, 3), TRAIN_TARGET, device=dev)
+    keeping, read = counted()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    s, losses, step_s, finite = scene, [], [], True
+    with keeping:
+        for _ in range(TRAIN_STEPS):
+            (s_new, loss), sec = timed(
+                lambda: rs.train_step(s, cam, target, path.li, cfg, mesh, lr=TRAIN_LR), dev)
+            finite &= all(bool(torch.isfinite(v).all()) for _, v in rs._float_leaves(s_new))
+            s = s_new
+            losses.append(float(loss))
+            step_s.append(round(sec, 4))
+    step_peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    launches, plain, kept = read()
+    require_b1("sharded_train", launches, plain)
+    checked = check_kept(bk, kept)
+    moved = [".".join(p) for (p, a), (_, b) in zip(rs._float_leaves(scene), rs._float_leaves(s))
+             if not torch.equal(a, b)]
+    say("sharded_train", resolution=f"{cam.width}x{cam.height}", spp=TRAIN_SPP,
+        max_depth=TRAIN_DEPTH, steps=TRAIN_STEPS, lr=TRAIN_LR, backend=backend,
+        step_s=step_s, losses=[round(x, 6) for x in losses], leaves_moved=moved,
+        updates_finite=finite, step_peak_gb=round(step_peak_gb, 3), b1_launches=launches,
+        twin_checked_rays=checked, twin_mismatches=0)
+    if not (finite and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"sharded_train: losses {losses}, updates finite {finite}")
+    profile_call("sharded_train", lambda: rs.train_step(s, cam, target, path.li, cfg, mesh,
+                                                        lr=TRAIN_LR), dev,
+                 resolution=f"{cam.width}x{cam.height}", spp=TRAIN_SPP)
+    return path_launches("sharded_train", launches)
+
+
+def phase_cli_distributed(dev):
+    """[cli_distributed]: [cli_cornell]'s scene file through two processes
+    of `python -m mitsuba_tpu_torch <file> --distributed 127.0.0.1:P,2,I
+    --mesh 2,1` sharing the card (gloo), rank 0's EXR against the
+    one-process CLI image (cli.main in process) within DIST_CLI_TOL, rank 1
+    writing nothing; then `--mesh 1,1` (a one-rank NCCL group, no ranks to
+    spawn) in process through run_cli_counted, so that its B1 launches are
+    counted from zero and twin checked. Each run's backend (as its ranks
+    print it), seconds and mean. Returns B1's launches of the --mesh 1,1
+    run as {path: launches}."""
+    import io
+    import os
+    import tempfile
+
+    from mitsuba_tpu_torch import cli
+    from mitsuba_tpu_torch.io import image
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        xml_path = cli_cornell_files(tmp, dev)[0]
+        t0 = time.perf_counter()
+        if cli.main([str(xml_path), "-o", str(tmp / "one.exr"), "-q"]) != 0:
+            raise AssertionError("cli_distributed: the one-process render failed")
+        one_s = time.perf_counter() - t0
+        one = image.read_exr(tmp / "one.exr")
+
+        def command(out, *extra):
+            return [sys.executable, "-m", "mitsuba_tpu_torch", str(xml_path), "-o", str(out),
+                    "-q", *extra]
+
+        runs = {}
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(command(tmp / f"rank{i}.exr", "--mesh", "2,1",
+                                          "--distributed", f"127.0.0.1:{port},2,{i}"),
+                                  cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for i in range(2)]
+        errs = [proc.communicate(timeout=CLI_TIMEOUT_S)[1] for proc in procs]
+        for proc, err in zip(procs, errs):
+            if proc.returncode != 0:
+                raise AssertionError(f"cli_distributed distributed_2x1 exited "
+                                     f"{proc.returncode}:\n{err[-4000:]}")
+        runs["distributed_2x1"] = (time.perf_counter() - t0, errs, tmp / "rank0.exr")
+        if (tmp / "rank1.exr").exists():
+            raise AssertionError("cli_distributed: rank 1 wrote an image")
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            launches, checked, times = run_cli_counted(
+                bk, [xml_path, "-o", tmp / "mesh11.exr", "--mesh", "1,1"], dev)
+        runs["mesh_1x1"] = (time.perf_counter() - t0, [err.getvalue()], tmp / "mesh11.exr")
+        sys.stderr.write(err.getvalue())
+        lines = {}
+        for name, (sec, es, out) in runs.items():
+            backends = [ln.split("backend ")[1].split(",")[0] for e in es
+                        for ln in e.splitlines() if "backend " in ln]
+            img = image.read_exr(out)
+            diff = float(np.abs(img - one).max())
+            lines[name] = dict(seconds=round(sec, 3), backends=backends,
+                               mean_radiance=round(float(img.mean()), 6), max_abs_diff=diff)
+            if not np.allclose(img, one, rtol=DIST_CLI_TOL, atol=DIST_CLI_TOL):
+                raise AssertionError(f"cli_distributed {name}: max diff {diff} against the "
+                                     "one-process image")
+        want = {"distributed_2x1": ["gloo", "gloo"], "mesh_1x1": ["nccl"]}
+        if any(sorted(lines[k]["backends"]) != v for k, v in want.items()):
+            raise AssertionError(f"cli_distributed: backends {lines}")
+        lines["mesh_1x1"].update(**times, b1_launches=launches, twin_checked_rays=checked,
+                                 twin_mismatches=0)
+    say("cli_distributed", resolution=f"{CLI_CORNELL_WIDTH}x{CLI_CORNELL_WIDTH}",
+        spp=FRONTEND_SPP, one_process_s=round(one_s, 3),
+        one_process_mean=round(float(one.mean()), 6), **lines, bar=DIST_CLI_TOL)
+    return path_launches("cli_mesh_1x1", launches)
+
+
+def dipole_params(dev):
+    """tests/test_subsurface.py's params(sigma_t=30): albedo 0.8, eta 1.3."""
+    import torch
+
+    from mitsuba_tpu_torch.models import subsurface as sss
+
+    return sss.DipoleParams(sigma_s=torch.full((3,), 24.0, device=dev),
+                            sigma_a=torch.full((3,), 6.0, device=dev), g=0.0, eta=1.3)
+
+
+def first_hits(scene, cam):
+    """Hit points, shading normals facing the camera and wo of every pixel
+    centre's camera ray that hits."""
+    import torch
+
+    from mitsuba_tpu_torch.models import sensor
+    from mitsuba_tpu_torch.ops import intersect, trace
+
+    w, h = cam.width, cam.height
+    ys, xs = torch.meshgrid(torch.arange(h, device=scene.device),
+                            torch.arange(w, device=scene.device), indexing="ij")
+    n = w * h
+    o, d, _ = sensor.sample_rays(cam, xs.reshape(-1) + 0.5, ys.reshape(-1) + 0.5,
+                                 torch.full((n, 2), 0.5, device=scene.device))
+    its = trace.closest_hit(scene, o, d)
+    si = intersect.surface_interaction(scene, o, d, its)
+    ns = si["ns"] * torch.where((si["ns"] * d).sum(-1, keepdim=True) > 0, -1.0, 1.0)
+    ok = its.valid
+    return si["p"][ok], ns[ok], -d[ok]
+
+
+def slab_scene(dev):
+    """tests/test_subsurface.py:143-178's flat slab: a 2x2 floor under a
+    0.6x0.6 area light of radiance 10 at height 1."""
+    from mitsuba_tpu_torch.scene import ir
+
+    verts = np.asarray([[-1, 0, -1], [-1, 0, 1], [1, 0, 1], [1, 0, -1], [-0.3, 1.0, -0.3],
+                        [0.3, 1.0, -0.3], [0.3, 1.0, 0.3], [-0.3, 1.0, 0.3]], np.float32)
+    tris = np.asarray([[0, 1, 2], [0, 2, 3], [4, 5, 6], [4, 6, 7]], np.int32)
+    return ir.build_scene(verts, tris, np.zeros(4, np.int32), [{"type": ir.BSDF_DIFFUSE}],
+                          tri_radiance={2: [10.0] * 3, 3: [10.0] * 3}, device=dev)
+
+
+def slab_ratio(dev):
+    """The exact / classical single-scatter mean on the slab fixture (64
+    queries across the floor, SSS_SLAB_SAMPLES samples, seed 3)."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common
+    from mitsuba_tpu_torch.models import subsurface as sss
+
+    scene = slab_scene(dev)
+    p = sss.DipoleParams(sigma_s=torch.full((3,), 2.0, device=dev),
+                         sigma_a=torch.full((3,), 0.2, device=dev), eta=1.4, g=0.0)
+    n = 64
+    qp = torch.stack([torch.linspace(-0.4, 0.4, n), torch.zeros(n), torch.zeros(n)], -1).to(dev)
+    ns = torch.tensor([[0.0, 1.0, 0.0]], device=dev).repeat(n, 1)
+    cfg = common.RenderConfig(spp=1, seed=3)
+    le, lc = (sss.single_scatter_radiance(p, scene, qp, ns, ns, cfg, n_samples=SSS_SLAB_SAMPLES,
+                                          exact_nee=exact) for exact in (True, False))
+    require_finite("slab exact", le, (n, 3))
+    return float(le.mean()) / float(lc.mean())
+
+
+def phase_subsurface(dev):
+    """[subsurface]: the dipole on the Cornell box's short block
+    (tests/test_subsurface.py:44-45's triangles): SSS_POINTS blue-noise
+    cache points (host darts), their irradiance with SSS_IRRADIANCE_SAMPLES
+    NEE samples, the dipole gather at the first hits of a PARALLEL_WIDTH^2
+    camera and single_scatter_radiance (SSS_SINGLE_SAMPLES samples, exact
+    NEE) there, with B1 counted and twin checked; all finite and
+    non-negative; the slab fixture's exact/classical ratio within SSS_RATIO;
+    on SSS_TWIN_POINTS of the queries the card against the CPU (the largest
+    gap relative to the largest value); the busy share of the irradiance,
+    gather and single-scatter passes profiled once more. Returns B1's
+    launches by path."""
+    import torch
+
+    from mitsuba_tpu_torch.integrators import common
+    from mitsuba_tpu_torch.models import subsurface as sss
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(PARALLEL_WIDTH, PARALLEL_WIDTH, device=dev)
+    mask = np.zeros(scene.num_triangles, bool)
+    mask[SHORT_BLOCK_TRIS] = True
+    t0 = time.perf_counter()
+    pts, nrm, area = sss.sample_surface_points(scene, mask, SSS_POINTS)
+    darts_s = time.perf_counter() - t0
+    cfg = common.RenderConfig(seed=1)
+    p = dipole_params(dev)
+    keeping, read = counted()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with keeping:
+        E, irr_s = timed(lambda: sss.compute_irradiance(scene, pts, nrm, cfg,
+                                                        n_samples=SSS_IRRADIANCE_SAMPLES), dev)
+        (q, qn, wo), hits_s = timed(lambda: first_hits(scene, cam), dev)
+        lo, gather_s = timed(lambda: sss.sss_exitant_radiance(p, pts, E, area, q, qn, wo), dev)
+        ls, single_s = timed(lambda: sss.single_scatter_radiance(
+            p, scene, q, qn, wo, cfg, n_samples=SSS_SINGLE_SAMPLES, exact_nee=True), dev)
+    step_peak_gb = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    launches, plain, kept = read()
+    require_b1("subsurface", launches, plain)
+    checked = check_kept(bk, kept)
+    ratio = slab_ratio(dev)
+
+    # the card against the CPU on the first SSS_TWIN_POINTS queries
+    k = SSS_TWIN_POINTS
+    cpu_scene, _ = builtin.cornell_box(PARALLEL_WIDTH, PARALLEL_WIDTH, device="cpu")
+    pc = dipole_params("cpu")
+    E_cpu = sss.compute_irradiance(cpu_scene, pts.cpu(), nrm.cpu(), cfg,
+                                   n_samples=SSS_IRRADIANCE_SAMPLES)
+    lo_cpu = sss.sss_exitant_radiance(pc, pts.cpu(), E.cpu(), area, q[:k].cpu(), qn[:k].cpu(),
+                                      wo[:k].cpu())
+    ls_cpu = sss.single_scatter_radiance(pc, cpu_scene, q[:k].cpu(), qn[:k].cpu(),
+                                         wo[:k].cpu(), cfg, n_samples=SSS_SINGLE_SAMPLES,
+                                         exact_nee=True)
+
+    def gap(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    gaps = {"irradiance": gap(E, E_cpu), "gather": gap(lo[:k], lo_cpu),
+            "single_scatter": gap(ls[:k], ls_cpu)}
+    say("subsurface", cache_points=pts.shape[0], darts_s=round(darts_s, 3),
+        irradiance_samples=SSS_IRRADIANCE_SAMPLES, irradiance_s=round(irr_s, 4),
+        queries=q.shape[0], first_hits_s=round(hits_s, 4), gather_s=round(gather_s, 4),
+        gather_pairs=q.shape[0] * pts.shape[0], single_samples=SSS_SINGLE_SAMPLES,
+        single_scatter_s=round(single_s, 4), step_peak_gb=round(step_peak_gb, 3),
+        mean_E=round(float(E.mean()), 6), mean_dipole=round(float(lo.mean()), 6),
+        mean_single=round(float(ls.mean()), 6), slab_ratio=round(ratio, 4), ratio_bar=SSS_RATIO,
+        card_cpu_rel_gap=gaps, b1_launches=launches, twin_checked_rays=checked,
+        twin_mismatches=0)
+    for name, x in (("irradiance", E), ("dipole", lo), ("single scatter", ls)):
+        if not (bool(torch.isfinite(x).all()) and float(x.min()) >= 0):
+            raise AssertionError(f"subsurface {name}: finite {bool(torch.isfinite(x).all())}, "
+                                 f"min {float(x.min())}")
+    if not (float(lo.max()) > 0 and float(ls.max()) > 0
+            and SSS_RATIO[0] < ratio < SSS_RATIO[1]):
+        raise AssertionError(f"subsurface: dipole max {float(lo.max())}, single max "
+                             f"{float(ls.max())}, slab ratio {ratio}")
+    profile_call("subsurface", lambda: (
+        sss.compute_irradiance(scene, pts, nrm, cfg, n_samples=SSS_IRRADIANCE_SAMPLES),
+        sss.sss_exitant_radiance(p, pts, E, area, q, qn, wo),
+        sss.single_scatter_radiance(p, scene, q, qn, wo, cfg, n_samples=SSS_SINGLE_SAMPLES,
+                                    exact_nee=True)), dev, queries=q.shape[0])
+    return path_launches("subsurface", launches)
+
+
+def lifted(warp_2d, pdf_2d):
+    """A planar warp onto the upper hemisphere through the gnomonic map
+    d = (x, y, 1) / |(x, y, 1)|, with its solid-angle pdf pdf_2d(x, y) /
+    cos^3(theta): (sample_fn, pdf_fn) for spherical_chi2."""
+    import torch
+
+    def sample(u):
+        xy = warp_2d(u)
+        return torch.nn.functional.normalize(
+            torch.cat([xy, torch.ones_like(xy[:, :1])], -1), dim=-1)
+
+    def pdf(v):
+        z = v[:, 2]
+        zs = torch.where(z > 1e-6, z, 1.0)
+        return torch.where(z > 1e-6, pdf_2d(v[:, 0] / zs, v[:, 1] / zs) / zs ** 3, 0.0)
+
+    return sample, pdf
+
+
+def chi2_warp_cases():
+    """{name: (sample_fn, pdf_fn)}: the eight warps the port gained, at
+    tests/test_warp.py's parameters. The uniform disk is lifted to the
+    hemisphere by Malley's method (its pdf cos/pi); the standard normal and
+    the tent through the gnomonic map (lifted)."""
+    import math
+
+    import torch
+
+    from mitsuba_tpu_torch.core import warp
+
+    def malley(u):
+        xy = warp.square_to_uniform_disk(u)
+        return torch.cat([xy, torch.sqrt(torch.clamp_min(1 - (xy * xy).sum(-1, keepdim=True),
+                                                         0.0))], -1)
+
+    def tent_1d(t):
+        return torch.clamp_min(1.0 - torch.abs(t), 0.0)
+
+    cases = {
+        "uniform_hemisphere": (warp.square_to_uniform_hemisphere, lambda v: torch.where(
+            v[..., 2] >= 0, warp.square_to_uniform_hemisphere_pdf(), 0.0)),
+        "uniform_disk": (malley, warp.square_to_cosine_hemisphere_pdf),
+        "std_normal": lifted(warp.square_to_std_normal, lambda x, y: torch.exp(
+            -0.5 * (x * x + y * y)) / (2 * math.pi)),
+        "tent": lifted(warp.square_to_tent, lambda x, y: tent_1d(x) * tent_1d(y)),
+        "vmf": (lambda u: warp.square_to_von_mises_fisher(u, 8.0),
+                lambda v: warp.square_to_von_mises_fisher_pdf(v, 8.0)),
+        "phong_lobe": (lambda u: warp.square_to_phong_lobe(u, 12.0),
+                       lambda v: warp.square_to_phong_lobe_pdf(v, 12.0)),
+    }
+    for alpha in (0.1, 0.4):
+        cases[f"beckmann_{alpha}"] = (lambda u, a=alpha: warp.square_to_beckmann(u, a),
+                                      lambda v, a=alpha: warp.square_to_beckmann_pdf(v, a))
+        cases[f"ggx_{alpha}"] = (lambda u, a=alpha: warp.square_to_ggx(u, a),
+                                 lambda v, a=alpha: warp.square_to_ggx_pdf(v, a))
+    return cases
+
+
+# tests/test_bsdf.py:28-51's records
+BSDF_CHI2_CASES = {
+    "diffuse": {"type": "BSDF_DIFFUSE", "reflectance": [0.8, 0.8, 0.8]},
+    "rough_conductor_ggx": {"type": "BSDF_ROUGH_CONDUCTOR", "alpha": [0.3, 0.3],
+                            "eta": [0.2, 0.92, 1.1], "k": [3.9, 2.45, 2.14],
+                            "extra": [0, 0, 0, "MICROFACET_GGX"]},
+    "rough_conductor_beckmann": {"type": "BSDF_ROUGH_CONDUCTOR", "alpha": [0.25, 0.25],
+                                 "eta": [0.2, 0.92, 1.1], "k": [3.9, 2.45, 2.14],
+                                 "extra": [0, 0, 0, "MICROFACET_BECKMANN"]},
+    "plastic": {"type": "BSDF_PLASTIC", "reflectance": [0.5, 0.2, 0.1]},
+    "phong": {"type": "BSDF_PHONG", "reflectance": [0.4, 0.4, 0.4],
+              "specular": [0.3, 0.3, 0.3], "extra": [30.0, 0, 0, 0]},
+    "rough_diffuse": {"type": "BSDF_ROUGH_DIFFUSE", "reflectance": [0.7, 0.7, 0.7],
+                      "alpha": [0.3, 0.3]},
+    "rough_plastic": {"type": "BSDF_ROUGH_PLASTIC", "reflectance": [0.5, 0.3, 0.2],
+                      "alpha": [0.3, 0.3], "extra": [0, 0, 0, "MICROFACET_GGX"]},
+    "rough_dielectric": {"type": "BSDF_ROUGH_DIELECTRIC", "eta": [1.5, 1.5, 1.5],
+                         "alpha": [0.3, 0.3], "reflectance": [1, 1, 1], "specular": [1, 1, 1],
+                         "extra": [0, 0, 0, "MICROFACET_GGX"]},
+}
+
+
+def bsdf_chi2_case(rec, n, dev):
+    """(sample_fn, pdf_fn, weights of the last sample call) of one
+    tests/test_bsdf.py record: wi = normalize(0.3, -0.2, 0.8), u_lobe the
+    JAX test's jax.random.uniform(PRNGKey(99)) draws, rejected and delta
+    lanes weighted 0 (the test's retry with sample_weights)."""
+    import torch
+
+    from mitsuba_tpu_torch.core import math as m, rng
+    from mitsuba_tpu_torch.models import bsdf
+    from mitsuba_tpu_torch.scene import ir
+
+    rec = {k: ([getattr(ir, x) if isinstance(x, str) else x for x in v] if isinstance(v, list)
+               else getattr(ir, v) if isinstance(v, str) else v) for k, v in rec.items()}
+    fam = (rec["type"],)
+    mats = ir.Materials.stack([rec], dev)
+    wi0 = m.normalize(torch.tensor([0.3, -0.2, 0.8], device=dev))
+
+    def sp(k):
+        return bsdf.ShadePoint(*(getattr(mats, f)[0].expand(k, *getattr(mats, f).shape[1:])
+                                 for f in ("type", "reflectance", "specular", "eta", "k",
+                                           "alpha", "extra")))
+
+    u_lobe = torch.from_numpy(rng.threefry_uniform(rng.threefry_key(99), (n,))).to(dev)
+    weights = {}
+
+    def sample(u2):
+        wo, _, pdf, is_delta = bsdf.sample(sp(u2.shape[0]), wi0.expand(u2.shape[0], 3),
+                                           u_lobe, u2, fam)
+        weights["w"] = ((pdf > 0) & ~is_delta).to(torch.float64)
+        return wo
+
+    def pdf(v):
+        return bsdf.eval_pdf(sp(v.shape[0]), wi0.expand(v.shape[0], 3), v, fam)[1]
+
+    return sample, pdf, weights
+
+
+def phase_chi2_warps(dev):
+    """[chi2_warps]: spherical_chi2 on the card at CHI2_SAMPLES samples for
+    the eight warps the port gained (chi2_warp_cases, at
+    WARP_SIGNIFICANCE, the mass within CHI2_MASS_TOL of the accepted
+    share), then [chi2_bsdf]: the BSDF records of tests/test_bsdf.py:58-93
+    (bsdf_chi2_case) at BSDF_SIGNIFICANCE. Each prints its p-value,
+    statistic and seconds; any that fails raises."""
+    import torch
+
+    from mitsuba_tpu_torch.core import rng
+    from mitsuba_tpu_torch.utils.chi2 import spherical_chi2
+
+    def run(group, cases, significance):
+        results, failed = {}, []
+        for name, (sample, pdf, weights) in cases.items():
+            t0 = time.perf_counter()
+            if weights is None:
+                passed, p, st = spherical_chi2(sample, pdf, n_samples=CHI2_SAMPLES,
+                                               significance=significance, device=dev)
+            else:
+                # the weights of the harness's own draws (seed 3), as the JAX test's retry
+                sample(torch.from_numpy(rng.threefry_uniform(rng.threefry_key(3),
+                                                             (CHI2_SAMPLES, 2))).to(dev))
+                passed, p, st = spherical_chi2(sample, pdf, n_samples=CHI2_SAMPLES, seed=3,
+                                               significance=significance,
+                                               sample_weights=weights["w"], device=dev)
+            mass_ok = abs(st["pdf_mass"] - st["accept_frac"]) < CHI2_MASS_TOL
+            results[name] = {"p": float(f"{p:.6g}"), "chi2": round(st["chi2"], 2),
+                             "dof": st["dof"], "mass": round(st["pdf_mass"], 5),
+                             "accept": round(st["accept_frac"], 5),
+                             "s": round(time.perf_counter() - t0, 3)}
+            if not (passed and (weights is not None or mass_ok)):
+                failed.append(name)
+        say(group, samples=CHI2_SAMPLES, significance=significance, cases=results)
+        if failed:
+            raise AssertionError(f"{group}: {failed} failed")
+
+    run("chi2_warps", {k: (s, p, None) for k, (s, p) in chi2_warp_cases().items()},
+        WARP_SIGNIFICANCE)
+    run("chi2_bsdf", {k: bsdf_chi2_case(rec, CHI2_SAMPLES, dev)
+                      for k, rec in BSDF_CHI2_CASES.items()}, BSDF_SIGNIFICANCE)
+    return {}
+
+
+def phase_native(dev):
+    """[native]: the native library builds from native/*.cpp; [cli_mesh]'s
+    70,034-triangle OBJ pair parses through it and through the Python
+    parser with equal arrays, and the BVH of the whole mesh builds through
+    it and through numpy with equal arrays; each way's seconds (P7)."""
+    import tempfile
+
+    from mitsuba_tpu_torch import native
+    from mitsuba_tpu_torch.io import mesh
+    from mitsuba_tpu_torch.scene import builtin, bvh
+
+    if not native.available():
+        raise AssertionError(f"native: the library does not build: {native.build_error()}")
+    scene, _ = builtin.displaced_sphere(width=CLI_MESH_WIDTH, height=CLI_MESH_WIDTH,
+                                        device=dev)
+    times = {"native_parse_s": 0.0, "python_parse_s": 0.0}
+    with tempfile.TemporaryDirectory() as tmp:
+        _, groups = write_scene_files(tmp, scene, '<sensor type="perspective"/>',
+                                      '<integrator type="path"/>')
+        objs = sorted(Path(tmp).glob("g*.obj"))
+        for obj in objs:
+            t0 = time.perf_counter()
+            nat = mesh.load_obj(obj)
+            times["native_parse_s"] += time.perf_counter() - t0
+            with mock.patch.object(native, "parse_obj", lambda path: None):
+                t0 = time.perf_counter()
+                py = mesh.load_obj(obj)
+                times["python_parse_s"] += time.perf_counter() - t0
+            for k in ("vertices", "indices", "normals", "uvs"):
+                a, b = getattr(nat, k), getattr(py, k)
+                if (a is None) != (b is None) or (a is not None and not np.array_equal(a, b)):
+                    raise AssertionError(f"native: {obj.name} {k} differs from the Python parse")
+    verts = scene.vertices.cpu().numpy()
+    tris = scene.indices.cpu().numpy()
+    t0 = time.perf_counter()
+    nat = bvh.build_bvh(verts, tris, device="cpu")
+    times["native_bvh_s"] = time.perf_counter() - t0
+    with mock.patch.object(native, "build_lbvh", lambda *a: None):
+        t0 = time.perf_counter()
+        py = bvh.build_bvh(verts, tris, device="cpu")
+        times["python_bvh_s"] = time.perf_counter() - t0
+    for k in ("aabb_min", "aabb_max", "miss_link", "tri_order"):
+        if not np.array_equal(getattr(nat, k).numpy(), getattr(py, k).numpy()):
+            raise AssertionError(f"native: the BVH's {k} differs from the numpy build's")
+    say("native", library=native.build().name, obj_files=len(objs), tris=int(tris.shape[0]),
+        arrays_equal=True, **{k: round(v, 4) for k, v in times.items()})
+    return {}
+
+
+PARALLEL_PHASES = (phase_sharded, phase_cli_distributed, phase_subsurface, phase_chi2_warps,
+                   phase_native)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4439,6 +5038,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths.update(phase(dev))
         mlt_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
+    t_parallel = time.perf_counter()
+    parallel_s = {}
+    for phase in PARALLEL_PHASES:
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        parallel_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
     t_end = time.perf_counter()
     say("total", seconds=round(t_end - t_start, 3),
         materials_seconds=round(t_media - t_materials, 3),
@@ -4448,7 +5053,8 @@ def main(argv=None) -> int:
         bidir_seconds=round(t_photon - t_bidir, 3), bidir_phase_seconds=bidir_s,
         photon_seconds=round(t_daylight - t_photon, 3), photon_phase_seconds=photon_s,
         daylight_seconds=round(t_mlt - t_daylight, 3), daylight_phase_seconds=daylight_s,
-        mlt_seconds=round(t_end - t_mlt, 3), mlt_phase_seconds=mlt_s)
+        mlt_seconds=round(t_parallel - t_mlt, 3), mlt_phase_seconds=mlt_s,
+        parallel_seconds=round(t_end - t_parallel, 3), parallel_phase_seconds=parallel_s)
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -12,8 +12,24 @@ JAX package's CLI:
   -t seed        RNG seed
   -a path        prepend a file-resolver search path
   -q / -v        quiet / debug log level; --log-file appends records
+  --mesh DP,SP   render sharded over DP x SP ranks, one device each:
+                 pixels over "dp", samples over "sp" (parallel/)
+  --distributed HOST:PORT,N,I
+                 this process is rank I of N in a torch.distributed group
+                 at tcp://HOST:PORT; only rank 0 writes the image
 A scene above trace.BRUTE_MAX_TRIS triangles gets its BVH here, so it
 takes the BVH kernel; a smaller one the brute-force kernel.
+
+`--mesh` without `--distributed` starts its ranks itself: the command
+runs as rank 0 and spawns DP*SP - 1 copies of itself with `--distributed
+127.0.0.1:<free port>,DP*SP,I`, waits for them and fails if one fails.
+The ranks meet in the store at HOST:PORT and each learns from it which
+ranks share its host (parallel.render_sharded.node_layout): a rank
+renders on cuda:(its index among them % cards), or the CPU under --cpu;
+the backend is NCCL where every rank of a host has a card of its own,
+gloo where ranks share a card or run on the CPU, fixed before the group
+starts and printed by every rank. Ranks on several hosts need nothing
+more than the same HOST:PORT.
 """
 from __future__ import annotations
 
@@ -61,9 +77,13 @@ def build_argparser():
                          "irrcache, pssmlt, erpt, mlt, spectral, depth, normal, ao, "
                          "motion, ...)")
     ap.add_argument("--mesh", default=None, metavar="DP,SP",
-                    help="multi-device rendering: not ported yet (ROADMAP A13)")
+                    help="sharded rendering over DP x SP ranks, one device each "
+                         "(pixels over DP, samples over SP); without "
+                         "--distributed the command spawns the other ranks")
     ap.add_argument("--distributed", default=None, metavar="HOST:PORT,N,I",
-                    help="multi-host rendering: not ported yet (ROADMAP A13)")
+                    help="join a torch.distributed group of N processes at "
+                         "tcp://HOST:PORT as rank I (every process runs the "
+                         "same command with its own I); only rank 0 writes")
     ap.add_argument("-j", "--jobs", type=int, default=1,
                     help="render multiple scenes concurrently (mitsuba.cpp -j): "
                          "a thread pool overlaps one scene's loading with "
@@ -121,10 +141,11 @@ def _device(args):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else [str(a) for a in argv]
     args = build_argparser().parse_args(argv)
-    if args.mesh or args.distributed:
-        raise SystemExit("--mesh and --distributed are not ported yet "
-                         "(ROADMAP A13: torch.distributed rendering)")
+    args.argv = argv
+    if (args.mesh or args.distributed) and len(args.scene) > 1:
+        raise SystemExit("--mesh and --distributed render one scene")
     from .core import logger as loglib
 
     logger = loglib.get_logger()
@@ -210,9 +231,115 @@ def _load(scene_path, defaults, args, dev, time_=0.0):
     return scene, cam, cfg, integ_name, load_s, bvh_s
 
 
+def _parse_mesh(value: str):
+    try:
+        dp, sp = (int(x) for x in value.split(","))
+    except ValueError:
+        raise SystemExit(f"bad --mesh '{value}', expected DP,SP") from None
+    if dp < 1 or sp < 1:
+        raise SystemExit(f"bad --mesh '{value}', expected DP,SP")
+    return dp, sp
+
+
+def _parse_distributed(value: str):
+    try:
+        coord, n, i = value.split(",")
+        n, i = int(n), int(i)
+    except ValueError:
+        raise SystemExit(f"bad --distributed '{value}', expected "
+                         "HOST:PORT,NUM_PROCS,PROCESS_ID") from None
+    return coord, n, i
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(args, n: int):
+    """--mesh without --distributed: this process becomes rank 0 of a group
+    of n at a free local port, and n - 1 copies of the command join it as
+    ranks 1..n-1. Returns the workers (subprocess.Popen)."""
+    import subprocess
+
+    coord = f"127.0.0.1:{_free_port()}"
+    args.distributed = f"{coord},{n},0"
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join([root, *filter(None, [os.environ.get("PYTHONPATH")])])}
+    return [subprocess.Popen([sys.executable, "-m", __package__, *args.argv,
+                              "--distributed", f"{coord},{n},{i}"], env=env)
+            for i in range(1, n)]
+
+
+def _join_ranks(workers, failed: bool):
+    """Wait for the spawned ranks (killed where this rank failed); exits
+    naming any that failed."""
+    bad = []
+    for i, p in enumerate(workers, start=1):
+        if failed:
+            p.kill()
+        if p.wait() != 0 and not failed:
+            bad.append(f"rank {i} exited {p.returncode}")
+    if bad:
+        raise SystemExit("--mesh: " + ", ".join(bad))
+
+
 def _render_one(args):
+    if not args.mesh and not args.distributed:
+        return _render_rank(args, _device(args))
+    import torch
+
+    workers = []
+    if args.mesh:
+        dp, sp = _parse_mesh(args.mesh)
+        if not args.cpu and not args.distributed and dp * sp > torch.cuda.device_count():
+            raise SystemExit(f"--mesh {args.mesh} needs {dp * sp} devices but only "
+                             f"{torch.cuda.device_count()} are available")
+        if not args.distributed:
+            workers = _spawn_ranks(args, dp * sp)
+    failed = True
+    try:
+        code = _render_distributed(args)
+        failed = code != 0
+        return code
+    finally:
+        _join_ranks(workers, failed)
+
+
+def _render_distributed(args):
+    """This process as one rank of a torch.distributed group: start the
+    group (backend fixed before, printed), render (sharded under --mesh),
+    and leave it."""
+    import torch.distributed as dist
+
+    from .parallel import render_sharded as rs
+
+    coord, n, rank = _parse_distributed(args.distributed)
+    dp, sp = _parse_mesh(args.mesh) if args.mesh else (n, 1)
+    if dp * sp > n:
+        raise SystemExit(f"--mesh {args.mesh} needs {dp * sp} devices but only "
+                         f"{n} are available")
+    if dp * sp < n:
+        raise SystemExit(f"--mesh {args.mesh} covers {dp * sp} of the group's {n} ranks")
+    _device(args)    # exits where there is no card and --cpu is not given
+    dev, backend = rs.start_group(f"tcp://{coord}", n, rank, cpu=args.cpu)
+    print(f"[mitsuba_tpu_torch] rank {rank} of {n}: backend {backend}, device {dev}",
+          file=sys.stderr, flush=True)
+    try:
+        mesh = rs.make_mesh(n, sp=sp, device=dev) if args.mesh else None
+        return _render_rank(args, dev, rank=rank, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _render_rank(args, dev, rank: int = 0, mesh=None):
+    """Load and render the scene on `dev`; rank 0 writes the image. Under a
+    mesh, an integrator with a per-ray Li renders sharded over it."""
     t0 = time.time()
-    dev = _device(args)
 
     defaults = {}
     for d in args.D:
@@ -248,6 +375,10 @@ def _render_one(args):
     out = args.output or (scene_path.rsplit(".", 1)[0] + ".exr")
 
     t_render, bin_loads = time.perf_counter(), 0.0
+    if rank != 0 and (li_fn == "multichannel" or (cfg.film_tiled and mesh is None)):
+        # the film streams to disk (or one file per channel): rank 0's alone
+        loglib.Log(loglib.EInfo, "rank %d: rank 0 writes the film", rank)
+        return 0
     if li_fn == "multichannel":
         # one image per channel: out.exr (radiance), out_depth.exr, ...
         from .integrators import multichannel
@@ -265,6 +396,10 @@ def _render_one(args):
         return 0
     if li_fn in _FILM_RENDERERS:
         img = render_film(li_fn, scene, cam, cfg).cpu().numpy()
+    elif mesh is not None:
+        from .parallel import render_sharded as rs
+
+        img = rs.render_sharded(scene, cam, li_fn, cfg, mesh).cpu().numpy()
     elif args.time_bins > 1:
         # time-binned object motion blur (deformable.cpp / track.h
         # analog): each bin re-loads the scene at a stratified shutter time
@@ -304,6 +439,11 @@ def _render_one(args):
     _record_times(st, load_s, bvh_s, time.perf_counter() - t_render - bin_loads)
     if args.debug_fp:
         _check_finite(img, "the image")
+    if rank != 0:
+        # only rank 0 develops the film (mtssrv workers never write; the
+        # client assembles, mitsuba.cpp:311)
+        loglib.Log(loglib.EInfo, "worker %d done (mean %.4f)", rank, img.mean())
+        return 0
 
     render_s = time.time() - t0
     # renderTime in the EXR header (film metadata the reference stamps;

@@ -73,6 +73,66 @@ def config_from_jax(jcfg) -> RenderConfig:
     return RenderConfig(**kw)
 
 
+def _chunk_radiance(scene, cam, li_fn: LiFn, cfg: RenderConfig, pixel_ids,
+                    sample_base: int, n_samples: int, chunk: int):
+    """For each chunk of `chunk` samples a pixel: (px, py, radiance) of every
+    pixel id x chunk slot, pixel-major, for the samples [sample_base,
+    sample_base + n_samples) of each pixel."""
+    from ..models import sensor as sensorlib
+
+    w = cam.width
+    pids = torch.repeat_interleave(pixel_ids, chunk)                 # pixel-major
+    slot = torch.arange(chunk, dtype=torch.int64,
+                        device=pixel_ids.device).repeat(pixel_ids.shape[0])
+    px_base = (pids % w).to(torch.float32)
+    py_base = (pids // w).to(torch.float32)
+    for ci in range(n_samples // chunk):
+        sample_ids = slot + (sample_base + ci * chunk)
+        stream = SampleStream(cfg.seed, pids, sample_ids, 0, kind=cfg.sampler, spp=cfg.spp)
+        # pixel jitter + lens sample: sampler dims 0-3
+        jx = stream.next_1d()
+        jy = stream.next_1d()
+        u_lens = stream.next_2d()
+        px, py = px_base + jx, py_base + jy
+        o, d, imp = sensorlib.sample_rays(cam, px, py, u_lens)
+        radiance = li_fn(scene, cam, o, d, stream, cfg) * imp[:, None]
+        yield px, py, torch.nan_to_num(radiance, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def radiance_sum(scene, cam, li_fn: LiFn, cfg: RenderConfig, pixel_ids, sample_base: int,
+                 n_samples: int, chunk: int) -> torch.Tensor:
+    """Sum of the per-sample radiance of each pixel id -> (Np, 3), the box
+    film's sums.
+
+    pixel_ids: (Np,) int64 flattened pixel indices (y * W + x) on the
+    scene's device. sample_base: the first sample index (a progressive
+    pass or a sample-parallel shard takes the samples [sample_base,
+    sample_base + n_samples) of one global set)."""
+    npx = pixel_ids.shape[0]
+    acc = torch.zeros((npx, 3), dtype=torch.float32, device=pixel_ids.device)
+    for _, _, radiance in _chunk_radiance(scene, cam, li_fn, cfg, pixel_ids, sample_base,
+                                          n_samples, chunk):
+        acc = acc + torch.sum(radiance.reshape(npx, chunk, 3), dim=1)
+    return acc
+
+
+def film_sum(scene, cam, li_fn: LiFn, cfg: RenderConfig, pixel_ids, sample_base: int,
+             n_samples: int, chunk: int):
+    """The filtered-splat variant of radiance_sum: the full-frame (H, W, 3)
+    image and (H, W) weight films of these pixels' samples (splats spill
+    past the pixels' own, film/film.py); filmlib.develop divides them."""
+    w, h = cam.width, cam.height
+    dev = pixel_ids.device
+    img = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    wgt = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    for px, py, radiance in _chunk_radiance(scene, cam, li_fn, cfg, pixel_ids, sample_base,
+                                            n_samples, chunk):
+        ci_img, ci_wgt = filmlib.splat(w, h, px, py, radiance, cfg.filter)
+        img = img + ci_img
+        wgt = wgt + ci_wgt
+    return img, wgt
+
+
 def render(scene, cam, li_fn: LiFn, cfg: RenderConfig, sample_offset: int = 0,
            y0: int = 0, rows: int | None = None) -> torch.Tensor:
     """Full-frame render -> (H, W, 3) float32 on the scene's device.
@@ -82,45 +142,18 @@ def render(scene, cam, li_fn: LiFn, cfg: RenderConfig, sample_offset: int = 0,
     sample set in each pass. y0 and rows select the row band [y0, y0 + rows)
     -> (rows, W, 3), with the full frame's pixel ids (film/tiled.py); the
     band resolves its own spp chunk, and only the box filter renders one."""
-    from ..models import sensor as sensorlib
-
-    dev = scene.device
     w, h = cam.width, cam.height
     rows = h - y0 if rows is None else rows
     box = cfg.filter == filmlib.FILTER_BOX
     if not box and (y0, rows) != (0, h):
         raise ValueError("a row band renders with the box filter only")
     chunk = cfg.resolve_chunk(w, rows)
-    nchunks = cfg.spp // chunk
-
-    pixel_ids = torch.arange(w * y0, w * (y0 + rows), dtype=torch.int64, device=dev)
-    pixel_ids = torch.repeat_interleave(pixel_ids, chunk)        # pixel-major
-    sample_slot = torch.arange(chunk, dtype=torch.int64, device=dev).repeat(w * rows)
-    px_base = (pixel_ids % w).to(torch.float32)
-    py_base = (pixel_ids // w).to(torch.float32)
-
-    img = torch.zeros((rows, w, 3), dtype=torch.float32, device=dev)
-    wgt = None if box else torch.zeros((h, w), dtype=torch.float32, device=dev)
-    for ci in range(nchunks):
-        sample_ids = sample_slot + (ci * chunk + sample_offset)
-        stream = SampleStream(cfg.seed, pixel_ids, sample_ids, 0,
-                              kind=cfg.sampler, spp=cfg.spp)
-        # pixel jitter + lens sample: sampler dims 0-3
-        jx = stream.next_1d()
-        jy = stream.next_1d()
-        u_lens = stream.next_2d()
-        px, py = px_base + jx, py_base + jy
-        o, d, imp = sensorlib.sample_rays(cam, px, py, u_lens)
-        radiance = li_fn(scene, cam, o, d, stream, cfg) * imp[:, None]
-        radiance = torch.nan_to_num(radiance, nan=0.0, posinf=0.0, neginf=0.0)
-        if box:
-            img = img + torch.sum(radiance.reshape(rows, w, chunk, 3), dim=2)
-        else:
-            ci_img, ci_wgt = filmlib.splat(w, h, px, py, radiance, cfg.filter)
-            img = img + ci_img
-            wgt = wgt + ci_wgt
+    n_samples = cfg.spp // chunk * chunk
+    pixel_ids = torch.arange(w * y0, w * (y0 + rows), dtype=torch.int64, device=scene.device)
     if box:
-        return img / max(float(nchunks * chunk), 1e-8)
+        acc = radiance_sum(scene, cam, li_fn, cfg, pixel_ids, sample_offset, n_samples, chunk)
+        return acc.reshape(rows, w, 3) / max(float(n_samples), 1e-8)
+    img, wgt = film_sum(scene, cam, li_fn, cfg, pixel_ids, sample_offset, n_samples, chunk)
     return filmlib.develop(img, wgt)
 
 

@@ -1,5 +1,5 @@
 """Triangle mesh loaders: OBJ, PLY (ascii + binary_little_endian); a numpy
-copy of the JAX package's io/mesh.py, parsing in Python only.
+copy of the JAX package's io/mesh.py, with its native OBJ parse.
 
 The analog of the reference shape plugins
 src/shapes/obj.cpp (wavefront OBJ with per-face v/vt/vn indexing and
@@ -27,9 +27,21 @@ class MeshData:
 
 def load_obj(path) -> MeshData:
     """Wavefront OBJ (obj.cpp parity: v/vt/vn, negative indices, polygon
-    fans, usemtl per-face group names). Python only: the JAX package
-    tries its native C++ parser (native/mesh_loader.cpp) first, which
-    builds the same arrays but no usemtl groups."""
+    fans, usemtl per-face group names). A file without `usemtl` takes the
+    native C++ parser (native/mesh_loader.cpp, through `native`) where it
+    builds, which gives the same arrays (every triangle in group ""); a
+    file with `usemtl`, or any file where the library does not build,
+    parses here in Python. The JAX package takes its native parser for
+    every file and so drops the groups of a file with `usemtl` (ROADMAP
+    C43)."""
+    from .. import native
+
+    with open(path, "rb") as f:
+        has_groups = b"usemtl" in f.read()
+    nat = None if has_groups else native.parse_obj(path)
+    if nat is not None and nat["indices"].size:
+        return MeshData(nat["vertices"], nat["indices"], normals=nat["normals"],
+                        uvs=nat["uvs"], face_groups=[""] * nat["indices"].shape[0])
     positions: list = []
     texcoords: list = []
     normals: list = []

@@ -97,11 +97,26 @@ def _morton3(x: np.ndarray) -> np.ndarray:
 
 
 def build_bvh(vertices: np.ndarray, indices: np.ndarray, device="cuda") -> BVH:
-    """Host-side numpy build; the heap arrays land on `device`. The kernel
-    tables come from `attach`, which needs the scene."""
+    """Host-side build; the heap arrays land on `device`. The kernel tables
+    come from `attach`, which needs the scene. Takes the threaded C++
+    builder (native/lbvh.cpp, through `native`) where it builds, as the JAX
+    package does, and this numpy build, which gives the same arrays,
+    where it does not."""
+    from .. import native
+
     vertices = np.asarray(vertices, np.float32)
     indices = np.asarray(indices, np.int32)
     n = indices.shape[0]
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    nat = native.build_lbvh(vertices, indices, LEAF_SIZE)
+    if nat is not None:
+        amin, amax, miss, order = nat
+        n_leaves = (amin.shape[0] + 1) // 2
+        return BVH(aabb_min=t(amin), aabb_max=t(amax), miss_link=t(miss),
+                   tri_order=t(order), n_internal=int(n_leaves - 1), n_leaves=int(n_leaves))
 
     p0 = vertices[indices[:, 0]]
     p1 = vertices[indices[:, 1]]
@@ -146,9 +161,6 @@ def build_bvh(vertices: np.ndarray, indices: np.ndarray, device="cuda") -> BVH:
     miss[0] = -1
     for i in range(1, m):
         miss[i] = i + 1 if (i % 2) == 1 else miss[(i - 1) // 2]
-
-    def t(a):
-        return torch.as_tensor(a, device=device)
 
     return BVH(aabb_min=t(amin), aabb_max=t(amax), miss_link=t(miss),
                tri_order=t(tri_order), n_internal=int(n_leaves - 1),

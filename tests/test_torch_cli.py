@@ -5,8 +5,9 @@ own branches, each against an in-process render of the same loaded scene:
 the -s/-d/-t/-D overrides, --integrator, --time-bins, -r progressive,
 the tiled film, -j over several scenes, checkpoint resume, --debug-fp,
 pssmlt's, erpt's and mlt's counts, mlt's pssmlt route on an env-lit
-scene, the exits naming ROADMAP A13, and the exit without a GPU and
---cpu."""
+scene, --mesh (the command spawning its second rank) and two
+--distributed processes against the one-process image, the multi-device
+flags' exits, and the exit without a GPU and --cpu."""
 import contextlib
 import dataclasses
 import functools
@@ -269,14 +270,76 @@ def test_debug_fp_names_first_bad_pixel(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,roadmap", [
-    (["--mesh", "2,1"], "A13"), (["--distributed", "localhost:1234,2,0"], "A13")])
+    (["--mesh", "2"], "A13"), (["--distributed", "localhost:1234,2"], "A13")])
 def test_unported_options_exit(tmp_path, argv, roadmap):
-    """Each exits before it renders or writes: the multi-device flags
-    (A13)."""
+    """The multi-device flags are ported (A13): a malformed value exits
+    with the JAX CLI's message before it renders or writes, and no exit
+    names the roadmap item."""
     p = write_scene(tmp_path)
-    with pytest.raises(SystemExit, match=roadmap):
+    with pytest.raises(SystemExit, match="expected") as e:
         run(p, "-o", tmp_path / "o.exr", "-q", *argv)
+    assert roadmap not in str(e.value)
     assert not (tmp_path / "o.exr").exists()
+
+
+def test_mesh_needs_a_card_per_rank(tmp_path, monkeypatch):
+    """On the card, --mesh DP,SP needs DP*SP cards (the JAX CLI's message);
+    a mesh that is not the group's size exits too."""
+    p = write_scene(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match="--mesh 2,1 needs 2 devices but only 1 are available"):
+        cli.main([str(p), "-o", str(tmp_path / "o.exr"), "-q", "--mesh", "2,1"])
+    with pytest.raises(SystemExit, match="needs 4 devices but only 2 are available"):
+        run(p, "-q", "--mesh", "2,2", "--distributed", "127.0.0.1:1,2,0")
+    with pytest.raises(SystemExit, match="covers 1 of the group's 2 ranks"):
+        run(p, "-q", "--mesh", "1,1", "--distributed", "127.0.0.1:1,2,0")
+    assert not (tmp_path / "o.exr").exists()
+
+
+def _command(p, out, *extra):
+    return [sys.executable, "-m", "mitsuba_tpu_torch", str(p), "-o", str(out), "-q", "--cpu",
+            "-D", "res=16", *extra]
+
+
+def test_mesh_renders_the_one_process_image(tmp_path):
+    """--mesh 2,1 --cpu: the command spawns its second rank (gloo), rank 0
+    writes the image, equal to the one-process image within RENDER_TOL."""
+    p = write_scene(tmp_path)
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    res = subprocess.run(_command(p, tmp_path / "m.exr", "--mesh", "2,1"), capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr[-4000:]
+    for rank in (0, 1):
+        assert f"rank {rank} of 2: backend gloo, device cpu" in res.stderr
+    np.testing.assert_allclose(image.read_exr(tmp_path / "m.exr"),
+                               render_loaded(p, defaults={"res": "16"}),
+                               rtol=RENDER_TOL, atol=RENDER_TOL)
+
+
+def test_distributed_two_processes(tmp_path):
+    """Two processes with --distributed 127.0.0.1:PORT,2,I --mesh 1,2 --cpu
+    (the samples split over the two): rank 0's image equals the
+    one-process image within RENDER_TOL, and rank 1 writes nothing."""
+    import socket
+
+    p = write_scene(tmp_path)
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(_command(p, tmp_path / f"r{i}.exr", "--mesh", "1,2",
+                                       "--distributed", f"127.0.0.1:{port},2,{i}"),
+                              stderr=subprocess.PIPE, text=True, env=env) for i in (0, 1)]
+    errs = [proc.communicate(timeout=300)[1] for proc in procs]
+    for i, (proc, err) in enumerate(zip(procs, errs)):
+        assert proc.returncode == 0, err[-4000:]
+        assert f"rank {i} of 2: backend gloo, device cpu" in err
+    assert not (tmp_path / "r1.exr").exists()
+    img = image.read_exr(tmp_path / "r0.exr")
+    assert image.read_exr_attrs(tmp_path / "r0.exr")["renderTime"] > 0
+    np.testing.assert_allclose(img, render_loaded(p, defaults={"res": "16"}),
+                               rtol=RENDER_TOL, atol=RENDER_TOL)
 
 
 @pytest.mark.parametrize("argv", [[], ["-r", "0"], ["--time-bins", "2"]])
