@@ -13,7 +13,7 @@ gradient path, both kernels inside reverse-mode steps: the gradients
 through each kernel against those through its plain twin, the quad-blocker
 shadow gradient and the 10,372-triangle mesh-scale gradient against finite
 differences, an inverse recovery on the mesh, and the headline gradient
-(Cornell 256x256, 16 spp, an L2 loss through boundary.render_grad) timed,
+(Cornell 256x256, 8 spp, an L2 loss through boundary.render_grad) timed,
 with its peak memory and device busy share; in the mesh and headline
 steps, one launch of each kernel entry at each batch size the step takes
 is rerun through the plain twin, bit for bit. Then the materials and
@@ -29,7 +29,7 @@ one launch per kernel entry and batch size is rerun through the twin.
 Then participating media and delta lights, through volpath.li: the
 volpath_homogeneous golden; the golden's fog in the Cornell box at
 256x256, 64 spp, depth 6 (darker than the vacuum render); an absorbing blob
-on a 128^3 density grid at 256x256, 16 spp (each blob position darkens its
+on a 128^3 density grid at 256x256, 8 spp (each blob position darkens its
 own half; the share of device time in the density lookups); a spot light's
 beam in the fog, a point light through the wavefront (and the wavefront
 against path.li); the 10,372-triangle sphere_shadow in the fog on the BVH
@@ -91,7 +91,7 @@ tests/test_manifold.py's flat mirror against the closed form, and 4,096
 lanes on the card against the CPU; mlt.render on the Cornell box at
 256x256, depth 8 (the JAX defaults: 2^14 chains from 2^16 bootstrap
 paths; 64 mutations, five kernels), on caustic_box with a perfect mirror
-(depth 4, 48 mutations, six kernels: the manifold perturbation walks)
+(depth 4, 24 mutations, six kernels: the manifold perturbation walks)
 and on tests/test_mlt_manifold.py's glass-sphere box (128x128, depth 5),
 each mean within its JAX test's bar of path.li's and every kernel's
 acceptance above 0; the CLI's mlt on [cli_cornell]'s files and its
@@ -101,7 +101,7 @@ written here, loaded and rendered.
 Then sharded and multi-process rendering, the dipole, the chi-square
 harness and the native binding (the [parallel] group, PARALLEL_PHASES):
 render_sharded on a one-rank NCCL group in process at mesh (1, 1), the
-Cornell box at 256x256 x 64 spp, depth 8, with the box and the Gaussian
+Cornell box at 256x256 x 16 spp, depth 8, with the box and the Gaussian
 film, and the 70,034-triangle sphere on B2, each equal to common.render's
 image; three train_step calls at 256x256 x 4 spp, the loss falling; two
 processes of the real command with --distributed sharing the card (gloo)
@@ -112,10 +112,18 @@ the slab fixture's exact/classical ratio, and 1,024 queries on the card
 against the CPU; spherical_chi2 at 2^20 samples for the eight new warps
 and tests/test_bsdf.py's BSDF records; the native OBJ parse and BVH build
 of the 70,034-triangle pair against the Python ones, both timed.
+Then the compiled renders (the [jit] group, JIT_PHASES): [cli_cornell]'s
+configuration through common.render_jit (CUDA graphs: the first chunk
+eager, the chunk captured, every later one replayed) with the Gaussian
+and the box film, the progressive renderer over four passes (one
+capture), the 70,034-triangle sphere through B2 inside the graph, and the
+headline and the big mesh through wavefront.render_jit (a step graph per
+lane width), each against the eager render of this run, its launches
+counted per replay and equal to the eager ones, with both busy shares.
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The line [total] gives the whole script's seconds and those of
 the materials, the media, the front-end, the CLI, the bidirectional, the
-photon, the daylight, the mlt and the parallel phases.
+photon, the daylight, the mlt, the parallel and the jit phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -205,6 +213,11 @@ PEAK_HBM_BYTES = 3.35e12
 TRI_INSTR = 32
 SLAB_INSTR = 16
 RAY_BYTES = 28    # o, d, tmax (float32)
+
+
+# the eager images of [headline] and [bigmesh] ((image, config, launches)),
+# which [jit_wavefront] holds its replayed renders against
+EAGER_IMAGES = {}
 
 
 def say(phase, **fields):
@@ -722,6 +735,7 @@ def phase_headline(dev, width, spp):
         if min(counts.values()) == 0 or any(calls.values()):
             raise AssertionError(f"main path bypassed a kernel: launches {counts}, "
                                  f"plain calls {calls}")
+    EAGER_IMAGES["headline"] = (img, cfg, {f"brute_{k}": v for k, v in launches.items()})
     return launches
 
 
@@ -1108,6 +1122,7 @@ def phase_bigmesh(dev, lanes=4):
         raise AssertionError(f"big-mesh mean with the TPU's camera rounding {mean_bf16} "
                              f"is not within 1% of {BIGMESH_MEAN}")
     phase_profile("bigmesh", scene, cam, cfg, **kw)
+    EAGER_IMAGES["bigmesh"] = (img, cfg, {f"bvh_{k}": v for k, v in launches.items()})
     return {"bigmesh_render": launches, "bigmesh_count_pass": count_launches}
 
 
@@ -1115,7 +1130,7 @@ def phase_bigmesh(dev, lanes=4):
 # (quad blocker, 5%) and :373-492 (mesh scale, 10%; inverse recovery within
 # 0.06 of the true translation).
 GRAD_KERNEL_RTOL = 1e-4
-GRAD_HEADLINE_SPP = 16
+GRAD_HEADLINE_SPP = 8
 SHADOW_FD_RTOL = 0.05
 MESH_FD_RTOL = 0.10
 MESH_THETA_TRUE, MESH_THETA_TOL = 0.2, 0.06
@@ -1813,7 +1828,7 @@ VOLPATH_DEPTH = 6
 # a user's volume: a 128^3 float32 density grid (8 MB), the Gaussian blob of
 # tests/test_volpath.py:215-220 at that resolution; 16 spp, depth 5
 GRID_RES = 128
-GRID_SPP = 16
+GRID_SPP = 8
 GRID_DEPTH = 5
 # tests/test_grad_coverage.py:26-57: AD 64 spp, FD 256 spp, eps 0.1, 12%
 MEDIUM_FD_RTOL = 0.12
@@ -2712,7 +2727,8 @@ def phase_cli_cornell(dev):
     cli.main renders it in process with B1's launches counted and twin
     checked; the loaded arrays equal the fixture's bit for bit; both EXRs
     equal the in-process render of the builtin scene at the goldens' bar
-    (check_golden); the device busy share of a 4-spp render of the loaded
+    (check_golden), and the eager render of the loaded scene at C31's bar
+    (the CLI renders through common.render_jit); the device busy share of a 4-spp render of the loaded
     scene (phase_profile). Returns B1's launches as {path: launches}."""
     import dataclasses
     import tempfile
@@ -2734,10 +2750,18 @@ def phase_cli_cornell(dev):
     if lcfg != cfg:
         raise AssertionError(f"cli_cornell: loaded config {lcfg} against {cfg}")
     (flips, max_diff), (flips_in, max_diff_in) = check_golden(sub, ref), check_golden(inproc, ref)
+    # the CLI renders through common.render_jit: its images against the
+    # eager render of the loaded scene, at C31's bar (the splat's atomics)
+    eager = common.render(loaded, lcam, path.li, lcfg).cpu().numpy()
+    jit_diff = [float(np.abs(im - eager).max()) for im in (sub, inproc)]
+    if not all(np.allclose(im, eager, rtol=JIT_RTOL, atol=JIT_ATOL) for im in (sub, inproc)):
+        raise AssertionError(f"cli_cornell: the CLI's images {jit_diff} off the eager render "
+                             f"of the loaded scene (C31: rtol {JIT_RTOL}, atol {JIT_ATOL})")
     say("cli_cornell", resolution=f"{width}x{width}", spp=spp, tris=tris, obj_files=len(groups),
         subprocess_wall_s=round(wall, 3), **times, b1_launches=launches,
         twin_checked_rays=checked, twin_mismatches=0, pixels_off=[flips, flips_in],
-        max_abs_diff=[max_diff, max_diff_in], mean_radiance=round(float(inproc.mean()), 6))
+        max_abs_diff=[max_diff, max_diff_in], eager_max_abs_diff=jit_diff,
+        mean_radiance=round(float(inproc.mean()), 6))
     phase_profile("cli_cornell", loaded, lcam, dataclasses.replace(lcfg, spp=4), li=path.li)
     return path_launches("cli_cornell", launches)
 
@@ -3920,11 +3944,11 @@ MLT_WIDTH = 256
 MLT_CHAINS = 1 << 14             # the JAX defaults (mlt.py:600-601)
 MLT_BOOTSTRAP = 1 << 16
 MLT_MUTATIONS = 64               # the CLI's count at -s 64 or below
-MLT_CAUSTIC_MUTATIONS = 48       # eight cycles of the six kernels
+MLT_CAUSTIC_MUTATIONS = 24       # four cycles of the six kernels
 MLT_CAUSTIC_DEPTH = 4
 MLT_GLASS_WIDTH = 128
 MLT_GLASS_DEPTH = 5
-MLT_GLASS_MUTATIONS = 48
+MLT_GLASS_MUTATIONS = 24
 MLT_CLI_SPP = 16
 MLT_CLI_DAYLIGHT_WIDTH = 64
 MLT_RTOL = 0.06                  # tests/test_mlt.py:21
@@ -4352,7 +4376,7 @@ MLT_PHASES = (phase_manifold_walk, phase_mlt, phase_mlt_caustic, phase_mlt_glass
 # --- sharded and multi-process rendering, subsurface, chi-square, native -------
 
 PARALLEL_WIDTH = 256
-SHARDED_SPP = 64                 # the Cornell headline's width at 64 spp, depth 8
+SHARDED_SPP = 16                 # the Cornell headline's width at 16 spp, depth 8
 SHARDED_DEPTH = 8
 SHARDED_RTOL, SHARDED_ATOL = 1e-4, 1e-5   # tests/test_sharded.py
 TRAIN_SPP, TRAIN_DEPTH, TRAIN_STEPS = 4, 3, 3   # tests/test_sharded.py:45-66 at full width
@@ -4934,6 +4958,241 @@ PARALLEL_PHASES = (phase_sharded, phase_cli_distributed, phase_subsurface, phase
                    phase_native)
 
 
+
+# The compiled renders (the [jit] group): common.render_jit and
+# wavefront.render_jit, each render captured into CUDA graphs and replayed
+# (utils/graphs.py), against the eager render of the same run. C31's bar
+# where the film sums with atomics (the Gaussian splat, the compaction
+# ladder's scatter); bit for bit elsewhere on common.render_jit; C8's bar
+# on the wavefront against [headline] and [bigmesh].
+JIT_PASSES, JIT_PASS_SPP = 4, 16
+JIT_RTOL, JIT_ATOL = 1e-5, 1e-6
+JIT_PROFILE_SPP = 4
+
+
+def _kernel_counts():
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+
+    return {**{f"brute_{k}": v for k, v in bk.KERNEL_LAUNCHES.items()},
+            **{f"bvh_{k}": v for k, v in bvk.KERNEL_LAUNCHES.items()}}
+
+
+def _reset_kernel_counts():
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+
+    for counts in (bk, bvk):
+        counts.reset_counts()
+
+
+def jit_cell(name, eager, jit, dev, check, eager_out=None, profile=None, **fields):
+    """[name]: `jit()` (a render through render_jit) against `eager()`, the
+    eager render of the same configuration in this run, or `eager_out`,
+    (image, launches) of an earlier phase's. The first jit call captures;
+    the second, timed with the kernels' launches counted from zero, only
+    replays. Its launches (counted per replay) must equal the eager
+    render's entry for entry and launch some kernel; `check(img, ref)`
+    raises where the images differ beyond the cell's bar and returns what
+    the line prints. `profile`: (eager, jit) renders whose device busy
+    shares are printed. Returns {name: the replayed run's launches}."""
+    from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import bvh_kernel as bvk
+    from mitsuba_tpu_torch.utils import graphs
+
+    if eager_out is None:
+        _reset_kernel_counts()
+        ref, eager_s = timed(eager, dev)
+        eager_launches = _kernel_counts()
+    else:
+        (ref, eager_launches), eager_s = eager_out, None
+    graphs.reset_counts()
+    _, first_s = timed(jit, dev)
+    first = dict(graphs.STATS)
+    graphs.reset_counts()
+    _reset_kernel_counts()
+    img, jit_s = timed(jit, dev)
+    launches, plain = _kernel_counts(), {**bk.PLAIN_CALLS, **bvk.PLAIN_CALLS}
+    replayed = dict(graphs.STATS)
+    launches = {k: v for k, v in launches.items() if v}
+    eager_launches = {k: v for k, v in eager_launches.items() if v}
+    if launches != eager_launches or not launches or any(plain.values()) \
+            or replayed["captures"] or not replayed["replays"]:
+        raise AssertionError(f"{name}: replayed launches {launches} against eager "
+                             f"{eager_launches}, plain calls {plain}, graphs {replayed}")
+    shown = check(img, ref)
+    for label, fn in zip(("eager", "jit"), profile or ()):
+        fn()   # the jit render's capture, outside the profiled and timed calls
+        profile_call(f"{name}_{label}", fn, dev)
+    say(name, **fields, eager_render_s=None if eager_s is None else round(eager_s, 4),
+        first_jit_s=round(first_s, 4), jit_render_s=round(jit_s, 4),
+        first_call=first, replayed_call=replayed, launches=launches, **shown)
+    return {name: launches}
+
+
+def _equal(img, ref):
+    diff = float((img - ref).abs().max())
+    if diff != 0.0:
+        raise AssertionError(f"replayed image {diff} off the eager one (bit for bit expected)")
+    return {"max_abs_diff": diff}
+
+
+def _atomics_close(img, ref):
+    import torch
+
+    diff = float((img - ref).abs().max())
+    if not torch.allclose(img, ref, rtol=JIT_RTOL, atol=JIT_ATOL):
+        raise AssertionError(f"replayed image {diff} off the eager one (C31: rtol "
+                             f"{JIT_RTOL}, atol {JIT_ATOL})")
+    return {"max_abs_diff": diff}
+
+
+def _golden_close(img, ref):
+    flips, diff = check_golden(img.cpu().numpy(), ref.cpu().numpy())
+    return {"pixels_off": flips, "max_abs_diff": diff}
+
+
+def phase_jit_cli_cornell(dev):
+    """[jit_cli_cornell]: [cli_cornell]'s configuration (Cornell
+    CLI_CORNELL_WIDTH^2, ldsampler at FRONTEND_SPP, Gaussian hdrfilm, the
+    thin lens, depth 8: 8 chunks of 524,288 rays) through
+    common.render_jit against common.render, at C31's bar;
+    [jit_cli_cornell_box]: the same with the box film, bit for bit. Each
+    profiled at JIT_PROFILE_SPP. Returns B1's launches by path."""
+    import dataclasses
+    import tempfile
+
+    from mitsuba_tpu_torch.film import film
+    from mitsuba_tpu_torch.integrators import common, path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, scene, cam, cfg = cli_cornell_files(tmp, dev)
+    cam = thin_lens(cam)
+    out = {}
+    for name, c, check in (("jit_cli_cornell", cfg, _atomics_close),
+                           ("jit_cli_cornell_box",
+                            dataclasses.replace(cfg, filter=film.FILTER_BOX), _equal)):
+        small = dataclasses.replace(c, spp=JIT_PROFILE_SPP)
+        out.update(jit_cell(
+            name, lambda c=c: common.render(scene, cam, path.li, c),
+            lambda c=c: common.render_jit(scene, cam, path.li, c), dev, check,
+            profile=(lambda: common.render(scene, cam, path.li, small),
+                     lambda: common.render_jit(scene, cam, path.li, small)),
+            resolution=f"{cam.width}x{cam.height}", spp=c.spp, filter=c.filter,
+            chunks=c.spp // c.resolve_chunk(cam.width, cam.height)))
+    return out
+
+
+def phase_jit_progressive(dev):
+    """[jit_progressive]: render_progressive over [cli_cornell]'s scene and
+    lens with the box film, JIT_PASSES passes of JIT_PASS_SPP (each pass
+    one chunk of 1,048,576 rays): one capture, every later pass a replay;
+    the image equal bit for bit to the same passes rendered eagerly by
+    common.render and summed as render_progressive sums them. Returns B1's
+    launches by path."""
+    import dataclasses
+    import tempfile
+
+    from mitsuba_tpu_torch.film import film
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.utils import checkpoint, graphs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, scene, cam, cfg = cli_cornell_files(tmp, dev)
+    cam = thin_lens(cam)
+    total = JIT_PASSES * JIT_PASS_SPP
+    cfg = dataclasses.replace(cfg, spp=total, filter=film.FILTER_BOX)
+    pass_cfg = dataclasses.replace(cfg, spp=JIT_PASS_SPP, spp_chunk=JIT_PASS_SPP)
+
+    def eager():
+        acc = np.zeros((cam.height, cam.width, 3), np.float32)
+        for p in range(JIT_PASSES):
+            img = common.render(scene, cam, path.li, pass_cfg, sample_offset=p * JIT_PASS_SPP)
+            acc = acc + img.cpu().numpy() * JIT_PASS_SPP
+        return acc / total
+
+    _reset_kernel_counts()
+    ref, eager_s = timed(eager, dev)
+    eager_launches = _kernel_counts()
+    common._CHUNK_GRAPHS.clear()
+    graphs.reset_counts()
+    _reset_kernel_counts()
+    state, jit_s = timed(lambda: checkpoint.render_progressive(
+        scene, cam, path.li, cfg, total_spp=total, pass_spp=JIT_PASS_SPP), dev)
+    launches, stats = _kernel_counts(), dict(graphs.STATS)
+    diff = float(np.abs(state.image - ref).max())
+    say("jit_progressive", resolution=f"{cam.width}x{cam.height}", passes=JIT_PASSES,
+        pass_spp=JIT_PASS_SPP, eager_render_s=round(eager_s, 4),
+        progressive_render_s=round(jit_s, 4), graphs=stats,
+        launches={k: v for k, v in launches.items() if v}, max_abs_diff=diff)
+    if stats != {"captures": 1, "replays": JIT_PASSES - 1} or launches != eager_launches \
+            or not launches["brute_closest"] or diff != 0.0:
+        raise AssertionError(f"jit_progressive: graphs {stats}, launches {launches} against "
+                             f"eager {eager_launches}, {diff} off the eager passes")
+    return {"jit_progressive": {k: v for k, v in launches.items() if v}}
+
+
+def phase_jit_mesh(dev):
+    """[jit_mesh]: [cli_mesh]'s configuration (builtin.displaced_sphere's
+    70,034 triangles, CLI_MESH_WIDTH^2 x 16 spp, path depth 4, rr 3, the
+    box film) through common.render_jit, B2's closest and any-hit entries
+    inside the graph, against common.render bit for bit. Returns B2's
+    launches by path."""
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.displaced_sphere(width=CLI_MESH_WIDTH, height=CLI_MESH_WIDTH,
+                                          device=dev)
+    cfg = common.RenderConfig(spp=16, max_depth=4, rr_depth=3, seed=0)
+    out = jit_cell("jit_mesh", lambda: common.render(scene, cam, path.li, cfg),
+                   lambda: common.render_jit(scene, cam, path.li, cfg), dev, _equal,
+                   profile=(lambda: common.render(scene, cam, path.li, cfg),
+                            lambda: common.render_jit(scene, cam, path.li, cfg)),
+                   tris=scene.num_triangles, resolution=f"{cam.width}x{cam.height}",
+                   spp=cfg.spp)
+    if not (out["jit_mesh"].get("bvh_closest") and out["jit_mesh"].get("bvh_any_hit")):
+        raise AssertionError(f"jit_mesh: B2's entries not launched: {out}")
+    return out
+
+
+def phase_jit_wavefront(dev):
+    """[jit_wavefront_headline]: the headline (Cornell 256x256, 256 spp,
+    depth 8) through wavefront.render_jit, one step graph replayed per
+    step, against [headline]'s eager image of this run at C8's bar, B1's
+    launches equal to its. [jit_wavefront_bigmesh]: the big mesh, fuse +
+    compact (a step graph per rung of the ladder, B2's fused entry inside
+    each), against [bigmesh]'s. Busy shares of the headline at
+    JIT_PROFILE_SPP. Returns the launches by path."""
+    from mitsuba_tpu_torch.integrators import wavefront
+    from mitsuba_tpu_torch.scene import builtin
+
+    out = {}
+    scene, cam, cfg = cornell_headline(dev, 256, 256)
+    small = cornell_headline(dev, 256, JIT_PROFILE_SPP)[2]
+    img, ref_cfg, launches = EAGER_IMAGES["headline"]
+    if ref_cfg != cfg:
+        raise AssertionError(f"jit_wavefront: [headline] rendered {ref_cfg}, not {cfg}")
+    out.update(jit_cell(
+        "jit_wavefront_headline", None, lambda: wavefront.render_jit(scene, cam, cfg), dev,
+        _golden_close, eager_out=(img, launches),
+        profile=(lambda: wavefront.render(scene, cam, small),
+                 lambda: wavefront.render_jit(scene, cam, small)),
+        resolution="256x256", spp=cfg.spp, steps=launches["brute_closest"]))
+    scene, cam = builtin.displaced_sphere(device=dev)
+    img, cfg, launches = EAGER_IMAGES["bigmesh"]
+    kw = dict(lanes_per_pixel=4, compact=True, fuse=True)
+    out.update(jit_cell(
+        "jit_wavefront_bigmesh", None, lambda: wavefront.render_jit(scene, cam, cfg, **kw),
+        dev, _golden_close, eager_out=(img, launches), tris=scene.num_triangles,
+        resolution=f"{cam.width}x{cam.height}", spp=cfg.spp,
+        steps=launches["bvh_closest_and_any"], ladder=wavefront._ladder(cam.width * cam.height
+                                                                        * 4)))
+    return out
+
+
+JIT_PHASES = (phase_jit_cli_cornell, phase_jit_progressive, phase_jit_mesh,
+              phase_jit_wavefront)
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5044,6 +5303,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths.update(phase(dev))
         parallel_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
+    t_jit = time.perf_counter()
+    jit_s = {}
+    for phase in JIT_PHASES:
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        jit_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
     t_end = time.perf_counter()
     say("total", seconds=round(t_end - t_start, 3),
         materials_seconds=round(t_media - t_materials, 3),
@@ -5054,7 +5319,8 @@ def main(argv=None) -> int:
         photon_seconds=round(t_daylight - t_photon, 3), photon_phase_seconds=photon_s,
         daylight_seconds=round(t_mlt - t_daylight, 3), daylight_phase_seconds=daylight_s,
         mlt_seconds=round(t_parallel - t_mlt, 3), mlt_phase_seconds=mlt_s,
-        parallel_seconds=round(t_end - t_parallel, 3), parallel_phase_seconds=parallel_s)
+        parallel_seconds=round(t_jit - t_parallel, 3), parallel_phase_seconds=parallel_s,
+        jit_seconds=round(t_end - t_jit, 3), jit_phase_seconds=jit_s)
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -18,7 +18,10 @@ JAX package's CLI:
                  this process is rank I of N in a torch.distributed group
                  at tcp://HOST:PORT; only rank 0 writes the image
 A scene above trace.BRUTE_MAX_TRIS triangles gets its BVH here, so it
-takes the BVH kernel; a smaller one the brute-force kernel.
+takes the BVH kernel; a smaller one the brute-force kernel. An integrator
+with a per-ray Li renders through common.render_jit (CUDA graphs on the
+card), its progressive passes (-r) and time bins too, as the JAX CLI
+renders through its render_jit; the film renderers keep their own.
 
 `--mesh` without `--distributed` starts its ranks itself: the command
 runs as rank 0 and spawns DP*SP - 1 copies of itself with `--distributed
@@ -409,7 +412,7 @@ def _render_rank(args, dev, rank: int = 0, mesh=None):
                                                  time_=(b + 0.5) / args.time_bins)
             load_s, bvh_s, bin_loads = load_s + lb, bvh_s + bb, bin_loads + lb + bb
             cfg_b = dataclasses.replace(cfg, seed=cfg.seed + b * 7919)
-            img_b = common.render(scene_b, cam_b, li_fn, cfg_b).cpu().numpy()
+            img_b = common.render_jit(scene_b, cam_b, li_fn, cfg_b).cpu().numpy()
             img = img_b if img is None else img + img_b
         img = img / args.time_bins
     elif cfg.film_tiled:
@@ -435,7 +438,7 @@ def _render_rank(args, dev, rank: int = 0, mesh=None):
     elif args.refresh is not None:
         img = _render_progressive(args, scene, cam, li_fn, cfg, out)
     else:
-        img = common.render(scene, cam, li_fn, cfg).cpu().numpy()
+        img = common.render_jit(scene, cam, li_fn, cfg).cpu().numpy()
     _record_times(st, load_s, bvh_s, time.perf_counter() - t_render - bin_loads)
     if args.debug_fp:
         _check_finite(img, "the image")

@@ -6,10 +6,28 @@ JAX package evaluates them, so the CPU path rounds like the reference.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 EPS = 1e-4
 INF = 3.0e38
+
+
+@functools.lru_cache(maxsize=1024)
+def _const(values: tuple, shape: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device).reshape(shape)
+
+
+def const(values, device) -> torch.Tensor:
+    """A small float32 constant on `device`, made at its first use and then
+    shared (never write into it). A render captured into a CUDA graph
+    (utils/graphs.py) may not copy from host memory to the card, so the
+    shading code takes its tables and literal vectors from here: the
+    eager first chunk or step makes them, and the capture finds them."""
+    a = np.asarray(values, np.float32)
+    return _const(tuple(a.ravel().tolist()), a.shape, torch.device(device))
 
 
 def dot(a: torch.Tensor, b: torch.Tensor, keepdims: bool = False) -> torch.Tensor:

@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import math as m
+
 LAMBDA_MIN = 400.0
 LAMBDA_MAX = 700.0
 LAMBDA_RANGE = LAMBDA_MAX - LAMBDA_MIN
@@ -106,7 +108,7 @@ _Y_SCALE, _K_INV, _KW_INV = _calibrate()
 
 
 def _const(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.float32), device=like.device)
+    return m.const(a, like.device)
 
 
 def rgb_response(lam: torch.Tensor) -> torch.Tensor:

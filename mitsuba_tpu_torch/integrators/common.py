@@ -17,6 +17,7 @@ import torch
 
 from ..core.rng import SampleStream
 from ..film import film as filmlib
+from ..utils import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,30 +74,66 @@ def config_from_jax(jcfg) -> RenderConfig:
     return RenderConfig(**kw)
 
 
-def _chunk_radiance(scene, cam, li_fn: LiFn, cfg: RenderConfig, pixel_ids,
-                    sample_base: int, n_samples: int, chunk: int):
-    """For each chunk of `chunk` samples a pixel: (px, py, radiance) of every
-    pixel id x chunk slot, pixel-major, for the samples [sample_base,
-    sample_base + n_samples) of each pixel."""
-    from ..models import sensor as sensorlib
-
-    w = cam.width
-    pids = torch.repeat_interleave(pixel_ids, chunk)                 # pixel-major
+def chunk_layout(pixel_ids, chunk: int, width: int):
+    """The lanes of one chunk, pixel-major: (pixel id, sample slot, x, y of
+    the pixel's corner) of every pixel id x chunk slot."""
+    pids = torch.repeat_interleave(pixel_ids, chunk)
     slot = torch.arange(chunk, dtype=torch.int64,
                         device=pixel_ids.device).repeat(pixel_ids.shape[0])
-    px_base = (pids % w).to(torch.float32)
-    py_base = (pids // w).to(torch.float32)
+    return pids, slot, (pids % width).to(torch.float32), (pids // width).to(torch.float32)
+
+
+def chunk_radiance(scene, cam, li_fn: LiFn, cfg: RenderConfig, layout, base: torch.Tensor):
+    """(px, py, radiance) of one chunk: the samples base + slot of each lane
+    of `layout` (chunk_layout). `base` is a 0-dim int64 tensor on the
+    scene's device, so a captured chunk takes its samples from a tensor
+    that each replay rewrites."""
+    from ..models import sensor as sensorlib
+
+    pids, slot, px_base, py_base = layout
+    stream = SampleStream(cfg.seed, pids, slot + base, 0, kind=cfg.sampler, spp=cfg.spp)
+    # pixel jitter + lens sample: sampler dims 0-3
+    jx = stream.next_1d()
+    jy = stream.next_1d()
+    u_lens = stream.next_2d()
+    px, py = px_base + jx, py_base + jy
+    o, d, imp = sensorlib.sample_rays(cam, px, py, u_lens)
+    radiance = li_fn(scene, cam, o, d, stream, cfg) * imp[:, None]
+    return px, py, torch.nan_to_num(radiance, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def chunk_sum(scene, cam, li_fn: LiFn, cfg: RenderConfig, layout, base: torch.Tensor,
+              chunk: int):
+    """One chunk's share of the film: with the box filter a 1-tuple, each
+    pixel's sum of its `chunk` samples (Np, 3); else the (H, W, 3) image
+    and (H, W) weight splats (film/film.py). The work render_jit captures;
+    radiance_sum and film_sum add the chunks up in the same order."""
+    px, py, radiance = chunk_radiance(scene, cam, li_fn, cfg, layout, base)
+    if cfg.filter == filmlib.FILTER_BOX:
+        return (torch.sum(radiance.reshape(-1, chunk, 3), dim=1),)
+    return filmlib.splat(cam.width, cam.height, px, py, radiance, cfg.filter)
+
+
+def _base(sample_base: int, device) -> torch.Tensor:
+    return torch.full((), sample_base, dtype=torch.int64, device=device)
+
+
+def _film_zeros(box: bool, n_pixels: int, cam, device) -> list:
+    """chunk_sum's accumulators: the box film's (Np, 3) sums, or the
+    full-frame image and weight films."""
+    if box:
+        return [torch.zeros((n_pixels, 3), dtype=torch.float32, device=device)]
+    return [torch.zeros((cam.height, cam.width, 3), dtype=torch.float32, device=device),
+            torch.zeros((cam.height, cam.width), dtype=torch.float32, device=device)]
+
+
+def _accumulate(scene, cam, li_fn, cfg, pixel_ids, sample_base, n_samples, chunk, acc):
+    layout = chunk_layout(pixel_ids, chunk, cam.width)
     for ci in range(n_samples // chunk):
-        sample_ids = slot + (sample_base + ci * chunk)
-        stream = SampleStream(cfg.seed, pids, sample_ids, 0, kind=cfg.sampler, spp=cfg.spp)
-        # pixel jitter + lens sample: sampler dims 0-3
-        jx = stream.next_1d()
-        jy = stream.next_1d()
-        u_lens = stream.next_2d()
-        px, py = px_base + jx, py_base + jy
-        o, d, imp = sensorlib.sample_rays(cam, px, py, u_lens)
-        radiance = li_fn(scene, cam, o, d, stream, cfg) * imp[:, None]
-        yield px, py, torch.nan_to_num(radiance, nan=0.0, posinf=0.0, neginf=0.0)
+        sums = chunk_sum(scene, cam, li_fn, cfg, layout,
+                         _base(sample_base + ci * chunk, pixel_ids.device), chunk)
+        acc = [a + x for a, x in zip(acc, sums)]
+    return acc
 
 
 def radiance_sum(scene, cam, li_fn: LiFn, cfg: RenderConfig, pixel_ids, sample_base: int,
@@ -108,12 +145,9 @@ def radiance_sum(scene, cam, li_fn: LiFn, cfg: RenderConfig, pixel_ids, sample_b
     scene's device. sample_base: the first sample index (a progressive
     pass or a sample-parallel shard takes the samples [sample_base,
     sample_base + n_samples) of one global set)."""
-    npx = pixel_ids.shape[0]
-    acc = torch.zeros((npx, 3), dtype=torch.float32, device=pixel_ids.device)
-    for _, _, radiance in _chunk_radiance(scene, cam, li_fn, cfg, pixel_ids, sample_base,
-                                          n_samples, chunk):
-        acc = acc + torch.sum(radiance.reshape(npx, chunk, 3), dim=1)
-    return acc
+    acc = _film_zeros(True, pixel_ids.shape[0], cam, pixel_ids.device)
+    return _accumulate(scene, cam, li_fn, cfg, pixel_ids, sample_base, n_samples, chunk,
+                       acc)[0]
 
 
 def film_sum(scene, cam, li_fn: LiFn, cfg: RenderConfig, pixel_ids, sample_base: int,
@@ -121,16 +155,15 @@ def film_sum(scene, cam, li_fn: LiFn, cfg: RenderConfig, pixel_ids, sample_base:
     """The filtered-splat variant of radiance_sum: the full-frame (H, W, 3)
     image and (H, W) weight films of these pixels' samples (splats spill
     past the pixels' own, film/film.py); filmlib.develop divides them."""
-    w, h = cam.width, cam.height
-    dev = pixel_ids.device
-    img = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-    wgt = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    for px, py, radiance in _chunk_radiance(scene, cam, li_fn, cfg, pixel_ids, sample_base,
-                                            n_samples, chunk):
-        ci_img, ci_wgt = filmlib.splat(w, h, px, py, radiance, cfg.filter)
-        img = img + ci_img
-        wgt = wgt + ci_wgt
-    return img, wgt
+    acc = _film_zeros(False, pixel_ids.shape[0], cam, pixel_ids.device)
+    return tuple(_accumulate(scene, cam, li_fn, cfg, pixel_ids, sample_base, n_samples,
+                             chunk, acc))
+
+
+def _finish(acc, cfg: RenderConfig, rows: int, width: int, n_samples: int) -> torch.Tensor:
+    if cfg.filter == filmlib.FILTER_BOX:
+        return acc[0].reshape(rows, width, 3) / max(float(n_samples), 1e-8)
+    return filmlib.develop(*acc)
 
 
 def render(scene, cam, li_fn: LiFn, cfg: RenderConfig, sample_offset: int = 0,
@@ -151,10 +184,79 @@ def render(scene, cam, li_fn: LiFn, cfg: RenderConfig, sample_offset: int = 0,
     n_samples = cfg.spp // chunk * chunk
     pixel_ids = torch.arange(w * y0, w * (y0 + rows), dtype=torch.int64, device=scene.device)
     if box:
-        acc = radiance_sum(scene, cam, li_fn, cfg, pixel_ids, sample_offset, n_samples, chunk)
-        return acc.reshape(rows, w, 3) / max(float(n_samples), 1e-8)
-    img, wgt = film_sum(scene, cam, li_fn, cfg, pixel_ids, sample_offset, n_samples, chunk)
-    return filmlib.develop(img, wgt)
+        acc = (radiance_sum(scene, cam, li_fn, cfg, pixel_ids, sample_offset, n_samples, chunk),)
+    else:
+        acc = film_sum(scene, cam, li_fn, cfg, pixel_ids, sample_offset, n_samples, chunk)
+    return _finish(acc, cfg, rows, w, n_samples)
+
+
+class _ChunkGraph:
+    """render_jit's cache entry: private copies of a scene's and a camera's
+    tensors, the chunk's sample base, the film's accumulators and the
+    graph of one chunk added into them (None until the first chunk has
+    run eagerly)."""
+
+    def __init__(self, scene, cam, li_fn: LiFn, cfg: RenderConfig):
+        w, h = cam.width, cam.height
+        dev = scene.device
+        self.cfg = cfg
+        self.chunk = cfg.resolve_chunk(w, h)
+        self.statics = graphs.Statics(scene, cam)
+        s_scene, s_cam = self.statics.trees
+        layout = chunk_layout(torch.arange(w * h, dtype=torch.int64, device=dev), self.chunk, w)
+        self.base = _base(0, dev)
+        self.acc = _film_zeros(cfg.filter == filmlib.FILTER_BOX, w * h, cam, dev)
+        self.graph = None
+
+        def add_chunk():
+            sums = chunk_sum(s_scene, s_cam, li_fn, cfg, layout, self.base, self.chunk)
+            for a, x in zip(self.acc, sums):
+                a.add_(x)
+
+        self.add_chunk = add_chunk
+
+    def render(self, scene, cam, sample_offset: int) -> torch.Tensor:
+        self.statics.load(scene, cam)
+        for a in self.acc:
+            a.zero_()
+        n_samples = self.cfg.spp // self.chunk * self.chunk
+        for ci in range(n_samples // self.chunk):
+            self.base.fill_(sample_offset + ci * self.chunk)
+            if self.graph is None:
+                with torch.no_grad():
+                    self.add_chunk()
+                self.graph = graphs.capture(self.add_chunk)
+            else:
+                self.graph.replay()
+        return _finish(self.acc, self.cfg, cam.height, cam.width, n_samples)
+
+
+_CHUNK_GRAPHS = graphs.Cache()
+
+
+def render_jit(scene, cam, li_fn: LiFn, cfg: RenderConfig,
+               sample_offset: int = 0) -> torch.Tensor:
+    """`render`, compiled and cached as the JAX package's render_jit is.
+
+    On a CUDA device the first call for a key, (li_fn, cfg) and the
+    scene's and camera's structure, static fields and tensor shapes
+    (utils/graphs.static_key), renders its first chunk eagerly and
+    captures the chunk (sampling, li_fn, the film's sums) into a CUDA
+    graph; every later chunk, pass and call of that key replays it, with
+    the chunk's sample base written into a device tensor first, so a
+    progressive render's passes share one capture. The scene's and
+    camera's tensors are copied into the graph's own before each call: a
+    scene of the same key renders itself. On the CPU this is `render`. A
+    failed capture raises; a leaf that requires grad raises
+    NotImplementedError (gradients go through `render` or
+    `boundary.render_grad`)."""
+    graphs.refuse_grad("common.render_jit", scene, cam)
+    if scene.device.type != "cuda":
+        return render(scene, cam, li_fn, cfg, sample_offset)
+    key = (li_fn, cfg, graphs.static_key(scene, cam))
+    with _CHUNK_GRAPHS.lock, torch.cuda.device(scene.device):
+        entry = _CHUNK_GRAPHS.get(key, lambda: _ChunkGraph(scene, cam, li_fn, cfg))
+        return entry.render(scene, cam, int(sample_offset))
 
 
 def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:

@@ -111,8 +111,8 @@ def li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig) -> torch.Tenso
         is_diel = sp.type == _ir.BSDF_DIELECTRIC
         if cfg.cauchy_b > 0.0:
             eta_hero = spec.cauchy_eta(sp.eta[..., 0],
-                                       torch.tensor(cfg.cauchy_b, dtype=torch.float32,
-                                                    device=dev), lam[:, 0])
+                                       torch.full((), cfg.cauchy_b, dtype=torch.float32,
+                                                  device=dev), lam[:, 0])
             eta = sp.eta.clone()
             eta[..., 0] = torch.where(is_diel, eta_hero, sp.eta[..., 0])
             sp = sp._replace(eta=eta)

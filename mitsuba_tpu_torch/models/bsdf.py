@@ -173,9 +173,7 @@ def _safe_half(v):
     n2 = torch.sum(v * v, dim=-1, keepdim=True)
     ok = n2 > 1e-18
     safe = v * torch.rsqrt(torch.where(ok, n2, 1.0))
-    z = torch.zeros_like(v)
-    z[..., 2] = 1.0
-    return torch.where(ok, safe, z)
+    return torch.where(ok, safe, m.const([0.0, 0.0, 1.0], v.device))
 
 
 def _conductor_sample(sp, wi, u_lobe, u2):

@@ -175,7 +175,7 @@ def orientation_at(med: Medium, p: torch.Tensor) -> torch.Tensor:
     v = _trilinear(lambda z, y, x: o_[z, y, x], axis(rel[..., 0], w_), axis(rel[..., 1], h_),
                    axis(rel[..., 2], d_))
     ln = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
-    fallback = torch.tensor([0.0, 0.0, 1.0], device=v.device).expand(v.shape)
+    fallback = m.const([0.0, 0.0, 1.0], v.device).expand(v.shape)
     return torch.where(ln > 1e-6, v / torch.clamp_min(ln, 1e-6), fallback)
 
 

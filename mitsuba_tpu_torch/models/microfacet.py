@@ -82,7 +82,7 @@ def _ggx_vndf_sample(au, av, wi, u):
     lensq = vh[..., 0] ** 2 + vh[..., 1] ** 2
     t1_raw = torch.stack([-vh[..., 1], vh[..., 0], torch.zeros_like(lensq)], -1) \
         / torch.sqrt(torch.clamp_min(lensq, 1e-12))[..., None]
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device)
+    ex = m.const([1.0, 0.0, 0.0], vh.device)
     t1 = torch.where((lensq > 1e-12)[..., None], t1_raw, ex)
     t2 = m.cross(vh, t1)
     r = torch.sqrt(u[..., 0])

@@ -38,7 +38,7 @@ _SQRT2 = np.float32(math.sqrt(2.0))
 
 
 def _const(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(values, np.float32), device=like.device)
+    return m.const(values, like.device)
 
 
 def hg_eval(g, cos_theta: torch.Tensor) -> torch.Tensor:

@@ -134,7 +134,7 @@ def sample_rays(cam: Camera, px: torch.Tensor, py: torch.Tensor,
         return torch.zeros((n, 3), dtype=torch.float32, device=dev)
 
     def plus_z():
-        return torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n, 3)
+        return m.const([0.0, 0.0, 1.0], dev).expand(n, 3)
 
     def on_lens():
         lens = warp.square_to_uniform_disk_concentric(u_lens) * cam.aperture

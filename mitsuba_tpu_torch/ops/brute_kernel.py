@@ -36,6 +36,13 @@ entry points hand both of them detached inputs (`intersect.search_inputs`).
 KERNEL_LAUNCHES and PLAIN_CALLS count each route per entry point;
 LAST_CONFIG holds each entry's last launch configuration (lanes per ray,
 block size, triangles per tile, shared memory bytes).
+
+Inside a CUDA graph (utils/graphs.py): a launch recorded while the stream
+captures counts in CAPTURED_LAUNCHES, and each replay of the graph adds
+the launches it holds to KERNEL_LAUNCHES. The launcher's plan (a
+`cudaFuncSetAttribute` and occupancy queries) is made at the first launch
+of a scene size and kept, so the eager run before a capture makes it and
+the capture itself records the kernel launch alone.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ import torch
 from . import intersect as I
 
 KERNEL_LAUNCHES = {"closest": 0, "any_hit": 0}
+CAPTURED_LAUNCHES = {"closest": 0, "any_hit": 0}
 PLAIN_CALLS = {"closest": 0, "any_hit": 0}
 LAST_CONFIG = {"closest": None, "any_hit": None}
 # lanes per ray the kernel takes; None lets its launcher choose
@@ -54,7 +62,7 @@ LANES = (1, 2, 4, 8)
 
 
 def reset_counts():
-    for counts in (KERNEL_LAUNCHES, PLAIN_CALLS):
+    for counts in (KERNEL_LAUNCHES, CAPTURED_LAUNCHES, PLAIN_CALLS):
         for k in counts:
             counts[k] = 0
 
@@ -149,7 +157,9 @@ def _launch(entry, *args, dev, lanes):
     config = (ctypes.c_int * 4)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        KERNEL_LAUNCHES[entry] += 1
+        counts = (CAPTURED_LAUNCHES if torch.cuda.is_current_stream_capturing()
+                  else KERNEL_LAUNCHES)
+        counts[entry] += 1
         rc = getattr(_lib(), "brute_" + entry)(*args, lanes or 0, config, stream)
     if rc != 0:
         raise RuntimeError(f"brute kernel {entry}: CUDA error {rc} at launch")

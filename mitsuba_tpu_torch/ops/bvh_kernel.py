@@ -35,6 +35,15 @@ a backward: the entry points below hand both of them detached rays
 (`intersect.search_inputs`; the twin writes into tensors in place), and the
 tables are built detached (`scene/bvh.attach`). KERNEL_LAUNCHES and
 PLAIN_CALLS count each route per entry point; LAST_GRID holds each entry's last grid (blocks).
+
+Inside a CUDA graph (utils/graphs.py): a launch recorded while the stream
+captures counts in CAPTURED_LAUNCHES, and each replay adds the graph's
+launches to KERNEL_LAUNCHES. The walk's resident-block count (a carveout
+attribute and an occupancy query) is measured at the first launch on a
+device and kept, so the eager run before a capture measures it. Each
+launch's ray counter is a `torch.zeros` of its own: in a graph it is a
+fill node at a fixed address of the graph's pool, re-run before the walk
+on every replay, so no replay finds it non-zero.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from . import bvh_traverse as BT
 from . import intersect as I
 
 KERNEL_LAUNCHES = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
+CAPTURED_LAUNCHES = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
 PLAIN_CALLS = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
 LAST_GRID = {"closest": None, "any_hit": None, "closest_and_any": None}
 # stack entries of the kernel's walk (csrc/bvh_intersect.cu STACK)
@@ -55,7 +65,7 @@ KERNEL_STACK = 32
 
 
 def reset_counts():
-    for counts in (KERNEL_LAUNCHES, PLAIN_CALLS):
+    for counts in (KERNEL_LAUNCHES, CAPTURED_LAUNCHES, PLAIN_CALLS):
         for k in counts:
             counts[k] = 0
 
@@ -120,7 +130,9 @@ def _tables(bvh, dev):
 def _launch(entry, *args, dev):
     grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        KERNEL_LAUNCHES[entry] += 1
+        counts = (CAPTURED_LAUNCHES if torch.cuda.is_current_stream_capturing()
+                  else KERNEL_LAUNCHES)
+        counts[entry] += 1
         fn = getattr(_lib(), "bvh_" + entry)
         rc = fn(*args, ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
     if rc != 0:

@@ -71,7 +71,8 @@ def render_progressive(
     on_pass=None,
 ):
     """Accumulate `total_spp` in passes of `pass_spp` through
-    common.render(..., sample_offset=spp_done), checkpointing after each
+    common.render_jit(..., sample_offset=spp_done) (one capture on the
+    card serves every full pass), checkpointing after each
     pass and appending cumulative seconds to the timelog (the fork's
     convergence-experiment protocol, cppm_framework.h:219-266: one
     cumulative time per line per pass). `on_pass(state)` runs after each
@@ -104,8 +105,8 @@ def render_progressive(
         # sample set
         pass_cfg = dataclasses.replace(cfg, spp=n, spp_chunk=n)
         t0 = time.time()
-        img = common.render(scene, cam, li_fn, pass_cfg,
-                            sample_offset=state.spp_done).cpu().numpy()
+        img = common.render_jit(scene, cam, li_fn, pass_cfg,
+                                sample_offset=state.spp_done).cpu().numpy()
         state.wall_time += time.time() - t0
         state.image_sum = state.image_sum + img * n
         state.spp_done += n
