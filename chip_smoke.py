@@ -120,10 +120,20 @@ capture), the 70,034-triangle sphere through B2 inside the graph, and the
 headline and the big mesh through wavefront.render_jit (a step graph per
 lane width), each against the eager render of this run, its launches
 counted per replay and equal to the eager ones, with both busy shares.
+Then the film renderers' compiled renders (the [jit_film] group,
+JIT_FILM_PHASES): ptracer, bdpt's light image, bre, pssmlt, erpt, mlt
+(five kernels, and six with kernel F's walks in their graph-safe form),
+irrcache's film and the sharded render (box film and the 70,034-triangle
+sphere through B2) through their render_jit, each against the eager
+render of the same configuration in this run (the earlier groups' cells,
+EAGER_CELLS; MLT with F against its own fixed-walk eager render): the
+eager, first and replayed seconds, the captures and replays, both busy
+shares, the replayed launches equal to the eager ones.
 Every phase prints one line; any failure raises, so the exit code is
 non-zero. The line [total] gives the whole script's seconds and those of
 the materials, the media, the front-end, the CLI, the bidirectional, the
-photon, the daylight, the mlt, the parallel and the jit phases.
+photon, the daylight, the mlt, the parallel, the jit and the jit_film
+phases.
 The line before the last lists the kernels as JSON; the last names the
 device. Needs a CUDA device: without one it exits non-zero and prints no
 result.
@@ -218,6 +228,34 @@ RAY_BYTES = 28    # o, d, tmax (float32)
 # the eager images of [headline] and [bigmesh] ((image, config, launches)),
 # which [jit_wavefront] holds its replayed renders against
 EAGER_IMAGES = {}
+# every bidir_cell's (image, config, launches, render seconds), which the
+# [jit_film] group holds its replayed renders against
+EAGER_CELLS = {}
+# every profile_call's busy share, by its render's name
+PROFILE_BUSY = {}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (warnings only where an op has
+    none; uninitialised memory left unfilled), under which `index_add_`
+    sums in a fixed order: the Metropolis cells render under it, eager and
+    replayed, so that a replay's image equals the eager one bit for bit
+    (their chains are a function of the seed in either mode, ROADMAP
+    C48)."""
+    import torch
+    import torch.utils.deterministic
+
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
 
 
 def say(phase, **fields):
@@ -822,6 +860,7 @@ def profile_call(name, render, dev, scopes=None, **fields):
                     if "index" in k.lower() or "gather" in k.lower())
     shares = {label: round(t / device_ns, 4) for label, t in in_label.items()}
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    PROFILE_BUSY[name] = round(device_ns / 1e9 / wall_s, 4)
     say("profile", render=name, **fields,
         wall_s=round(wall_s, 4), device_busy_s=round(device_ns / 1e9, 4),
         busy_share=round(device_ns / 1e9 / wall_s, 4),
@@ -2892,8 +2931,9 @@ def bidir_cell(name, make, cfg, dev, scene, cam, ref=None, rtol=None, kernel="b1
     twins never) with the first launch per entry and batch size rerun
     through the twin (check_kept); the image finite, and its mean within
     `rtol` of `ref` where given. Then the device busy share of make() at
-    BIDIR_PROFILE_SPP (profile_call, with its `scopes`). Returns (image,
-    {path: launches})."""
+    BIDIR_PROFILE_SPP (profile_call, with its `scopes`). Keeps (image, cfg,
+    launches, render_s) in EAGER_CELLS[name]. Returns (image, {path:
+    launches})."""
     import dataclasses
 
     import torch
@@ -2934,6 +2974,8 @@ def bidir_cell(name, make, cfg, dev, scene, cam, ref=None, rtol=None, kernel="b1
                              f"{plain}, other kernel {others}")
     if ref is not None and not abs(mean - ref) <= rtol * ref:
         raise AssertionError(f"{name}: mean {mean} against path's {ref}, bar {rtol}")
+    prefix = "bvh" if kernel == "b2" else "brute"
+    EAGER_CELLS[name] = (img, cfg, {f"{prefix}_{k}": v for k, v in launches.items()}, render_s)
     small = dataclasses.replace(cfg, spp=min(cfg.spp, BIDIR_PROFILE_SPP))
     profile_call(name, lambda: make(small), dev, scopes, resolution=f"{cam.width}x{cam.height}",
                  spp=small.spp)
@@ -3424,20 +3466,28 @@ def phase_bre(dev):
     return out
 
 
+def irrcache_eager(scene, cam, cfg):
+    """irrcache.render's work rendered eagerly: the cache, then its film
+    through common.render (irrcache.render takes common.render_jit)."""
+    from mitsuba_tpu_torch.integrators import common, irrcache
+
+    cache = irrcache.build_cache(scene, cfg, IRR_POINTS, IRR_HEMI, seed=cfg.seed + 77)
+    return common.render(scene, cam, irrcache.li_factory(cache), cfg)
+
+
 def phase_irrcache(dev):
-    """[irrcache]: irrcache.render on the Cornell box at 256x256 x 16 spp,
-    depth 3, a cache of 4,096 points x 64 hemisphere rays: within 5% of
-    path.li's mean and above 1.05x direct.li's (both 64 spp, depth 3).
-    Returns B1's launches by path."""
-    from mitsuba_tpu_torch.integrators import direct, irrcache, path
+    """[irrcache]: irrcache.render's work, eagerly (irrcache_eager), on the
+    Cornell box at 256x256 x 16 spp, depth 3, a cache of 4,096 points x 64
+    hemisphere rays: within 5% of path.li's mean and above 1.05x
+    direct.li's (both 64 spp, depth 3). Returns B1's launches by path."""
+    from mitsuba_tpu_torch.integrators import direct, path
     from mitsuba_tpu_torch.scene import builtin
 
     w = PHOTON_WIDTH
     scene, cam = builtin.cornell_box(w, w, device=dev)
     direct_mean = float(ref_image(scene, cam, direct.li, IRR_DEPTH).mean())
     img, out = bidir_cell(
-        "irrcache", lambda c: irrcache.render(scene, cam, c, n_points=IRR_POINTS,
-                                              n_hemi=IRR_HEMI),
+        "irrcache", lambda c: irrcache_eager(scene, cam, c),
         _bidir_cfg(IRR_SPP, IRR_DEPTH), dev, scene, cam,
         float(ref_image(scene, cam, path.li, IRR_DEPTH).mean()), IRR_RTOL,
         points=IRR_POINTS, hemisphere_rays=IRR_HEMI)
@@ -3856,10 +3906,12 @@ def phase_mcmc(dev):
             ("erpt", lambda c: erpt.render(scene, cam, c, n_chains=MCMC_CHAINS,
                                            chain_length=c.spp, n_bootstrap=MCMC_BOOTSTRAP),
              ERPT_RTOL)):
-        img, launches = bidir_cell(name, make, _bidir_cfg(MCMC_MUTATIONS), dev, scene, cam,
-                                   float(ref.mean()), rtol, samples=evaluations,
-                                   chains=MCMC_CHAINS, bootstrap=MCMC_BOOTSTRAP,
-                                   mutations=MCMC_MUTATIONS, evaluations=evaluations)
+        with deterministic():
+            img, launches = bidir_cell(name, make, _bidir_cfg(MCMC_MUTATIONS), dev, scene, cam,
+                                       float(ref.mean()), rtol, samples=evaluations,
+                                       chains=MCMC_CHAINS, bootstrap=MCMC_BOOTSTRAP,
+                                       mutations=MCMC_MUTATIONS, evaluations=evaluations,
+                                       algorithms="deterministic")
         out.update(launches)
         if name == "pssmlt":
             corr = blurred_corr(ref.cpu().numpy(), img.cpu().numpy())
@@ -4061,24 +4113,28 @@ def mlt_maker(scene, cam, runs, **kw):
     return make
 
 
-def mlt_cell(name, scene, cam, dev, mutations, depth, rtol, n_modes, min_accept=None):
+def mlt_cell(name, scene, cam, dev, mutations, depth, rtol, n_modes, min_accept=None,
+             ordered=False):
     """One MLT render through bidir_cell (MLT_CHAINS chains from
     MLT_BOOTSTRAP bootstrap paths; samples_per_s counts path evaluations:
     bootstrap + chains x (mutations + 1)), its mean against path.li's at
     64 spp within `rtol`; [<name>_check]: the acceptance of each of the
     n_modes kernels above 0 (kernel F's above `min_accept` where given)
-    and b. Returns B1's launches by path."""
+    and b. `ordered`: under deterministic(), for [jit_film] to hold its
+    replays against. Returns B1's launches by path."""
     from mitsuba_tpu_torch.integrators import path
 
     ref = ref_image(scene, cam, path.li, depth)
     runs = []
     evaluations = MLT_BOOTSTRAP + MLT_CHAINS * (mutations + 1)
-    _, launches = bidir_cell(name, mlt_maker(scene, cam, runs, n_chains=MLT_CHAINS,
-                                             n_bootstrap=MLT_BOOTSTRAP),
-                             _bidir_cfg(mutations, depth), dev, scene, cam, float(ref.mean()),
-                             rtol, samples=evaluations, chains=MLT_CHAINS,
-                             bootstrap=MLT_BOOTSTRAP, mutations=mutations,
-                             evaluations=evaluations)
+    with deterministic() if ordered else contextlib.nullcontext():
+        _, launches = bidir_cell(name, mlt_maker(scene, cam, runs, n_chains=MLT_CHAINS,
+                                                 n_bootstrap=MLT_BOOTSTRAP),
+                                 _bidir_cfg(mutations, depth), dev, scene, cam,
+                                 float(ref.mean()), rtol, samples=evaluations,
+                                 chains=MLT_CHAINS, bootstrap=MLT_BOOTSTRAP,
+                                 mutations=mutations, evaluations=evaluations,
+                                 **({"algorithms": "deterministic"} if ordered else {}))
     acc = runs[0]["acceptance"].cpu().numpy()
     say(f"{name}_check", acceptance=[round(float(a), 5) for a in acc],
         b=round(float(runs[0]["b"]), 4), kernels=len(acc), f_bar=min_accept)
@@ -4096,7 +4152,8 @@ def phase_mlt(dev):
     from mitsuba_tpu_torch.scene import builtin
 
     scene, cam = builtin.cornell_box(MLT_WIDTH, MLT_WIDTH, device=dev)
-    return mlt_cell("mlt", scene, cam, dev, MLT_MUTATIONS, BIDIR_DEPTH, MLT_RTOL, 5)
+    return mlt_cell("mlt", scene, cam, dev, MLT_MUTATIONS, BIDIR_DEPTH, MLT_RTOL, 5,
+                    ordered=True)
 
 
 def phase_mlt_caustic(dev):
@@ -4109,7 +4166,7 @@ def phase_mlt_caustic(dev):
 
     scene, cam = builtin.caustic_box(MLT_WIDTH, MLT_WIDTH, rough=False, device=dev)
     return mlt_cell("mlt_caustic", scene, cam, dev, MLT_CAUSTIC_MUTATIONS, MLT_CAUSTIC_DEPTH,
-                    MLT_CAUSTIC_RTOL, 6, MLT_F_MIN_ACCEPT)
+                    MLT_CAUSTIC_RTOL, 6, MLT_F_MIN_ACCEPT, ordered=True)
 
 
 def glass_box(width, dev):
@@ -4205,8 +4262,8 @@ def phase_cli_mlt(dev):
                 return fn(*args, **kw)
             return call
 
-        with mock.patch.object(mlt, "render", route("mlt", mlt.render)), \
-                mock.patch.object(pssmlt, "render", route("pssmlt", pssmlt.render)):
+        with mock.patch.object(mlt, "render_jit", route("mlt", mlt.render_jit)), \
+                mock.patch.object(pssmlt, "render_jit", route("pssmlt", pssmlt.render_jit)):
             launches, checked, times = run_cli_counted(
                 bk, [day, "-o", tmp / "day.exr", "--integrator", "mlt"], dev)
         got = image.read_exr(tmp / "day.exr")
@@ -4986,16 +5043,20 @@ def _reset_kernel_counts():
         counts.reset_counts()
 
 
-def jit_cell(name, eager, jit, dev, check, eager_out=None, profile=None, **fields):
+def jit_cell(name, eager, jit, dev, check, eager_out=None, profile=None, eager_s=None,
+             eager_busy=None, captures_per_call=0, **fields):
     """[name]: `jit()` (a render through render_jit) against `eager()`, the
     eager render of the same configuration in this run, or `eager_out`,
-    (image, launches) of an earlier phase's. The first jit call captures;
-    the second, timed with the kernels' launches counted from zero, only
-    replays. Its launches (counted per replay) must equal the eager
-    render's entry for entry and launch some kernel; `check(img, ref)`
-    raises where the images differ beyond the cell's bar and returns what
-    the line prints. `profile`: (eager, jit) renders whose device busy
-    shares are printed. Returns {name: the replayed run's launches}."""
+    (image, launches) of an earlier phase's (`eager_s` its seconds). The
+    first jit call captures; the second, timed with the kernels' launches
+    counted from zero, only replays (or captures `captures_per_call`
+    graphs: irrcache's Li is new each call). Its launches (counted per
+    replay) must equal the eager render's entry for entry and launch some
+    kernel; `check(img, ref)` raises where the images differ beyond the
+    cell's bar and returns what the line prints. `profile`: (eager, jit)
+    renders whose device busy shares are printed (eager None: the busy
+    share `eager_busy` of an earlier phase's profile), each called once
+    before (its capture). Returns {name: the replayed run's launches}."""
     from mitsuba_tpu_torch.ops import brute_kernel as bk
     from mitsuba_tpu_torch.ops import bvh_kernel as bvk
     from mitsuba_tpu_torch.utils import graphs
@@ -5005,7 +5066,7 @@ def jit_cell(name, eager, jit, dev, check, eager_out=None, profile=None, **field
         ref, eager_s = timed(eager, dev)
         eager_launches = _kernel_counts()
     else:
-        (ref, eager_launches), eager_s = eager_out, None
+        ref, eager_launches = eager_out
     graphs.reset_counts()
     _, first_s = timed(jit, dev)
     first = dict(graphs.STATS)
@@ -5017,16 +5078,21 @@ def jit_cell(name, eager, jit, dev, check, eager_out=None, profile=None, **field
     launches = {k: v for k, v in launches.items() if v}
     eager_launches = {k: v for k, v in eager_launches.items() if v}
     if launches != eager_launches or not launches or any(plain.values()) \
-            or replayed["captures"] or not replayed["replays"]:
+            or replayed["captures"] != captures_per_call or not replayed["replays"]:
         raise AssertionError(f"{name}: replayed launches {launches} against eager "
                              f"{eager_launches}, plain calls {plain}, graphs {replayed}")
     shown = check(img, ref)
+    busy = {"eager": eager_busy}
     for label, fn in zip(("eager", "jit"), profile or ()):
+        if fn is None:
+            continue
         fn()   # the jit render's capture, outside the profiled and timed calls
         profile_call(f"{name}_{label}", fn, dev)
+        busy[label] = PROFILE_BUSY[f"{name}_{label}"]
     say(name, **fields, eager_render_s=None if eager_s is None else round(eager_s, 4),
         first_jit_s=round(first_s, 4), jit_render_s=round(jit_s, 4),
-        first_call=first, replayed_call=replayed, launches=launches, **shown)
+        first_call=first, replayed_call=replayed, launches=launches,
+        eager_busy_share=busy["eager"], jit_busy_share=busy.get("jit"), **shown)
     return {name: launches}
 
 
@@ -5193,6 +5259,198 @@ def phase_jit_wavefront(dev):
 JIT_PHASES = (phase_jit_cli_cornell, phase_jit_progressive, phase_jit_mesh,
               phase_jit_wavefront)
 
+
+# The film renderers' compiled renders (the [jit_film] group): each
+# render_jit against the eager render of the same configuration in this
+# run, the earlier groups' cell of that configuration (EAGER_CELLS: its
+# image, launches and seconds; its [profile] line's busy share at
+# BIDIR_PROFILE_SPP, at which the jit render is profiled too). Bit for bit
+# where no atomics sum the image (bre, the sharded box film, the
+# irradiance cache's film); C31's bar where `index_add_` splats (ptracer,
+# the light image). The Metropolis cells ([pssmlt], [erpt], [mlt],
+# [mlt_caustic]) render under torch's deterministic algorithms
+# (`deterministic`), and their render_jit under them too, bit for bit.
+def film_jit_cell(name, eager_name, make, cfg, dev, check, **fields):
+    """[name]: make(cfg), a render through render_jit, in a jit_cell against
+    EAGER_CELLS[eager_name] (rendered with the same cfg, or raise). Both
+    busy shares at the eager cell's profile size (BIDIR_PROFILE_SPP: spp,
+    or mutations): the eager cell's [profile] line and the jit render's,
+    replayed. Returns {name: launches}."""
+    import dataclasses
+
+    img, eager_cfg, launches, eager_s = EAGER_CELLS[eager_name]
+    if eager_cfg != cfg:
+        raise AssertionError(f"{name}: [{eager_name}] rendered {eager_cfg}, not {cfg}")
+    small = dataclasses.replace(cfg, spp=min(cfg.spp, BIDIR_PROFILE_SPP))
+    return jit_cell(name, None, lambda: make(cfg), dev, check, eager_out=(img, launches),
+                    eager_s=eager_s, eager_busy=PROFILE_BUSY[eager_name],
+                    profile=(None, lambda: make(small)), busy_spp=small.spp, **fields)
+
+
+def phase_jit_bidir(dev):
+    """[jit_ptracer]: ptracer.render_jit on the headline's Cornell box at
+    256x256 x 16 spp, depth 8 (1,048,576 particles: one chunk graph, two
+    chunks), against [ptracer]; [jit_bdpt_light_image]: bdpt.render_jit
+    (one spp-chunk graph: the eye strategies and the light image's
+    splats) against [bdpt_light_image]. C31's bar (the splats' atomics).
+    Returns B1's launches by path."""
+    from mitsuba_tpu_torch.integrators import bdpt, ptracer
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(BIDIR_WIDTH, BIDIR_WIDTH, device=dev)
+    cfg = _bidir_cfg()
+    out = {}
+    out.update(film_jit_cell("jit_ptracer", "ptracer", lambda c: ptracer.render_jit(scene, cam, c),
+                             cfg, dev, _atomics_close, resolution=f"{cam.width}x{cam.height}",
+                             spp=cfg.spp, particles=cam.width * cam.height * cfg.spp))
+    out.update(film_jit_cell("jit_bdpt_light_image", "bdpt_light_image",
+                             lambda c: bdpt.render_jit(scene, cam, c), cfg, dev, _atomics_close,
+                             resolution=f"{cam.width}x{cam.height}", spp=cfg.spp))
+    return out
+
+
+def phase_jit_bre(dev):
+    """[jit_bre]: bre.render_jit on tests/test_bre.py's fog (2^16 paths,
+    BRE_STEPS steps, 256x256): the prologue graph (photons, the grid's
+    sort, camera rays) and one step graph replayed per step, against
+    [bre] bit for bit. Returns B1's launches by path."""
+    from mitsuba_tpu_torch.integrators import bre
+    from mitsuba_tpu_torch.models import medium
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(PHOTON_WIDTH, PHOTON_WIDTH, device=dev)
+    scene = scene.replace(medium=medium.make_homogeneous(*BRE_FOG, g=0.0, device=dev))
+    return film_jit_cell(
+        "jit_bre", "bre",
+        lambda c: bre.render_jit(scene, cam, c, n_paths=BRE_PATHS, steps=BRE_STEPS),
+        _bidir_cfg(1), dev, _equal, resolution=f"{cam.width}x{cam.height}", paths=BRE_PATHS,
+        steps=BRE_STEPS)
+
+
+def chains_jit_cell(name, eager_name, make, cfg, dev, **fields):
+    """[name]: a Metropolis render_jit in a film_jit_cell against the eager
+    cell `eager_name`, both under deterministic(), bit for bit: the
+    generator registered with each graph draws what the eager chains draw.
+    Returns {name: launches}."""
+    with deterministic():
+        return film_jit_cell(name, eager_name, make, cfg, dev, _equal,
+                             algorithms="deterministic", **fields)
+
+
+def phase_jit_mcmc(dev):
+    """[jit_pssmlt], [jit_erpt]: pssmlt.render_jit and erpt.render_jit at
+    [pssmlt]'s and [erpt]'s configuration (256x256, depth 8, 2^15 chains x
+    MCMC_MUTATIONS mutations, 2^17 bootstrap paths, seed 0): the
+    bootstrap eager, one mutation graph (the generator registered)
+    replayed per mutation, against the eager cell bit for bit
+    (chains_jit_cell). Returns B1's launches by path."""
+    from mitsuba_tpu_torch.integrators import erpt, pssmlt
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(DAYLIGHT_WIDTH, DAYLIGHT_WIDTH, device=dev)
+    kw = dict(n_chains=MCMC_CHAINS, n_bootstrap=MCMC_BOOTSTRAP)
+    out = {}
+    for name, mod, count in (("pssmlt", pssmlt, "n_mutations"), ("erpt", erpt, "chain_length")):
+        out.update(chains_jit_cell(
+            f"jit_{name}", name,
+            lambda c, mod=mod, count=count: mod.render_jit(scene, cam, c, **{count: c.spp}, **kw),
+            _bidir_cfg(MCMC_MUTATIONS), dev, resolution=f"{cam.width}x{cam.height}",
+            chains=MCMC_CHAINS, mutations=MCMC_MUTATIONS, bootstrap=MCMC_BOOTSTRAP))
+    return out
+
+
+def phase_jit_mlt(dev):
+    """[jit_mlt]: mlt.render_jit at [mlt]'s configuration (the Cornell box
+    at MLT_WIDTH^2, depth 8, 2^14 chains x MLT_MUTATIONS mutations: five
+    kernel graphs replayed in the eager order); [jit_mlt_caustic]:
+    [mlt_caustic]'s (caustic_box with a perfect mirror, depth 4,
+    MLT_CAUSTIC_MUTATIONS mutations: six kernel graphs, F's two manifold
+    walks a step inside its graph, 20 Newton iterations each, where
+    [mlt_caustic]'s eager walks exit when the global condition falls).
+    Each against its eager cell bit for bit (chains_jit_cell), its
+    launches equal to the eager cell's. Returns B1's launches by path."""
+    from mitsuba_tpu_torch.integrators import mlt
+    from mitsuba_tpu_torch.scene import builtin
+
+    kw = dict(n_chains=MLT_CHAINS, n_bootstrap=MLT_BOOTSTRAP)
+    scene, cam = builtin.cornell_box(MLT_WIDTH, MLT_WIDTH, device=dev)
+    out = chains_jit_cell(
+        "jit_mlt", "mlt", lambda c: mlt.render_jit(scene, cam, c, n_mutations=c.spp, **kw),
+        _bidir_cfg(MLT_MUTATIONS, BIDIR_DEPTH), dev, resolution=f"{cam.width}x{cam.height}",
+        chains=MLT_CHAINS, mutations=MLT_MUTATIONS, kernels=5)
+    scene, cam = builtin.caustic_box(MLT_WIDTH, MLT_WIDTH, rough=False, device=dev)
+    out.update(chains_jit_cell(
+        "jit_mlt_caustic", "mlt_caustic",
+        lambda c: mlt.render_jit(scene, cam, c, n_mutations=c.spp, **kw),
+        _bidir_cfg(MLT_CAUSTIC_MUTATIONS, MLT_CAUSTIC_DEPTH), dev,
+        resolution=f"{cam.width}x{cam.height}", chains=MLT_CHAINS,
+        mutations=MLT_CAUSTIC_MUTATIONS, kernels=6, walk="fixed"))
+    return out
+
+
+def phase_jit_irrcache(dev):
+    """[jit_irrcache]: irrcache.render (the cache eager, the film through
+    common.render_jit: its Li is new each call, so each call captures one
+    chunk graph and replays it) at [irrcache]'s configuration, against
+    [irrcache]'s eager render bit for bit. Returns B1's launches by
+    path."""
+    from mitsuba_tpu_torch.integrators import irrcache
+    from mitsuba_tpu_torch.scene import builtin
+
+    scene, cam = builtin.cornell_box(PHOTON_WIDTH, PHOTON_WIDTH, device=dev)
+    cfg = _bidir_cfg(IRR_SPP, IRR_DEPTH)
+    img, eager_cfg, launches, eager_s = EAGER_CELLS["irrcache"]
+    if eager_cfg != cfg:
+        raise AssertionError(f"jit_irrcache: [irrcache] rendered {eager_cfg}")
+    return jit_cell("jit_irrcache", None,
+                    lambda: irrcache.render(scene, cam, cfg, n_points=IRR_POINTS,
+                                            n_hemi=IRR_HEMI),
+                    dev, _equal, eager_out=(img, launches), eager_s=eager_s,
+                    eager_busy=PROFILE_BUSY["irrcache"], captures_per_call=1,
+                    resolution=f"{cam.width}x{cam.height}", spp=cfg.spp, points=IRR_POINTS,
+                    hemisphere_rays=IRR_HEMI)
+
+
+def phase_jit_sharded(dev):
+    """[jit_sharded]: render_sharded_jit on a one-rank NCCL group (mesh (1,
+    1)) at [sharded]'s configuration (the Cornell box at 256x256 x 16 spp,
+    depth 8, the box film: the rank's chunk graph over its pixel ids, the
+    collectives outside it); [jit_sharded_mesh]: the 70,034-triangle
+    sphere at [sharded_mesh]'s (B2 inside the graph). Each against its
+    eager cell bit for bit. Returns the launches by path."""
+    from mitsuba_tpu_torch.film import film
+    from mitsuba_tpu_torch.integrators import common, path
+    from mitsuba_tpu_torch.parallel import render_sharded as rs
+    from mitsuba_tpu_torch.scene import builtin
+
+    out = {}
+    with world_one_group() as backend:
+        mesh = rs.make_mesh(1, sp=1)
+        scene, cam = builtin.cornell_box(PARALLEL_WIDTH, PARALLEL_WIDTH, device=dev)
+        cfg = common.RenderConfig(spp=SHARDED_SPP, max_depth=SHARDED_DEPTH, rr_depth=5, seed=0,
+                                  filter=film.FILTER_BOX)
+        out.update(film_jit_cell(
+            "jit_sharded", "sharded",
+            lambda c: rs.render_sharded_jit(scene, cam, path.li, c, mesh), cfg, dev, _equal,
+            backend=backend, mesh="(1, 1)", resolution=f"{cam.width}x{cam.height}",
+            spp=cfg.spp))
+        mscene, mcam = builtin.displaced_sphere(width=CLI_MESH_WIDTH, height=CLI_MESH_WIDTH,
+                                                device=dev)
+        cfg = common.RenderConfig(spp=16, max_depth=4, rr_depth=3, seed=0)
+        out.update(film_jit_cell(
+            "jit_sharded_mesh", "sharded_mesh",
+            lambda c: rs.render_sharded_jit(mscene, mcam, path.li, c, mesh), cfg, dev, _equal,
+            backend=backend, mesh="(1, 1)", tris=mscene.num_triangles,
+            resolution=f"{mcam.width}x{mcam.height}", spp=cfg.spp))
+    if not (out["jit_sharded_mesh"].get("bvh_closest") and
+            out["jit_sharded_mesh"].get("bvh_any_hit")):
+        raise AssertionError(f"jit_sharded_mesh: B2's entries not launched: {out}")
+    return out
+
+
+JIT_FILM_PHASES = (phase_jit_bidir, phase_jit_bre, phase_jit_mcmc, phase_jit_mlt,
+                   phase_jit_irrcache, phase_jit_sharded)
+
 def main(argv=None) -> int:
     import argparse
 
@@ -5309,6 +5567,12 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         paths.update(phase(dev))
         jit_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
+    t_film = time.perf_counter()
+    jit_film_s = {}
+    for phase in JIT_FILM_PHASES:
+        t0 = time.perf_counter()
+        paths.update(phase(dev))
+        jit_film_s[phase.__name__[len("phase_"):]] = round(time.perf_counter() - t0, 3)
     t_end = time.perf_counter()
     say("total", seconds=round(t_end - t_start, 3),
         materials_seconds=round(t_media - t_materials, 3),
@@ -5320,7 +5584,8 @@ def main(argv=None) -> int:
         daylight_seconds=round(t_mlt - t_daylight, 3), daylight_phase_seconds=daylight_s,
         mlt_seconds=round(t_parallel - t_mlt, 3), mlt_phase_seconds=mlt_s,
         parallel_seconds=round(t_jit - t_parallel, 3), parallel_phase_seconds=parallel_s,
-        jit_seconds=round(t_end - t_jit, 3), jit_phase_seconds=jit_s)
+        jit_seconds=round(t_film - t_jit, 3), jit_phase_seconds=jit_s,
+        jit_film_seconds=round(t_end - t_film, 3), jit_film_phase_seconds=jit_film_s)
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -402,7 +402,7 @@ def _render_rank(args, dev, rank: int = 0, mesh=None):
     elif mesh is not None:
         from .parallel import render_sharded as rs
 
-        img = rs.render_sharded(scene, cam, li_fn, cfg, mesh).cpu().numpy()
+        img = rs.render_sharded_jit(scene, cam, li_fn, cfg, mesh).cpu().numpy()
     elif args.time_bins > 1:
         # time-binned object motion blur (deformable.cpp / track.h
         # analog): each bin re-loads the scene at a stratified shutter time
@@ -467,14 +467,16 @@ def _render_rank(args, dev, rank: int = 0, mesh=None):
 
 def render_film(name, scene, cam, cfg):
     """The image of an integrator that renders the whole film itself, with
-    the JAX CLI's pass, photon and mutation counts from cfg.spp. Path-space
-    mlt renders area-lit scenes; a scene with an environment or delta
-    lights takes pssmlt, as the JAX CLI routes it (mlt's paths end on area
-    emitters)."""
+    the JAX CLI's pass, photon and mutation counts from cfg.spp, through
+    the render_jit entries where the JAX CLI takes them (ptracer, bre,
+    pssmlt, erpt, mlt; irrcache's film through common.render_jit; the
+    photon mappers eagerly). Path-space mlt renders area-lit scenes; a
+    scene with an environment or delta lights takes pssmlt, as the JAX CLI
+    routes it (mlt's paths end on area emitters)."""
     if name == "ptracer":
         from .integrators import ptracer
 
-        return ptracer.render(scene, cam, cfg)
+        return ptracer.render_jit(scene, cam, cfg)
     if name == "photonmapper":
         from .integrators import photonmapper
 
@@ -486,12 +488,12 @@ def render_film(name, scene, cam, cfg):
     if name == "bre":
         from .integrators import bre
 
-        return bre.render(scene, cam, cfg)
+        return bre.render_jit(scene, cam, cfg)
     if name == "mlt":
         if scene.has_area and not (scene.has_env or scene.delta_emitters is not None):
             from .integrators import mlt
 
-            return mlt.render(scene, cam, cfg, n_mutations=max(cfg.spp, 64))
+            return mlt.render_jit(scene, cam, cfg, n_mutations=max(cfg.spp, 64))
         from .core import logger as loglib
 
         loglib.Log(loglib.EInfo, "mlt: the scene has an environment or delta lights, "
@@ -500,11 +502,11 @@ def render_film(name, scene, cam, cfg):
     if name == "pssmlt":
         from .integrators import pssmlt
 
-        return pssmlt.render(scene, cam, cfg, n_mutations=max(cfg.spp, 64))
+        return pssmlt.render_jit(scene, cam, cfg, n_mutations=max(cfg.spp, 64))
     if name == "erpt":
         from .integrators import erpt
 
-        return erpt.render(scene, cam, cfg, chain_length=max(cfg.spp, 64))
+        return erpt.render_jit(scene, cam, cfg, chain_length=max(cfg.spp, 64))
     from .integrators import irrcache
 
     return irrcache.render(scene, cam, cfg)

@@ -26,7 +26,8 @@ from ..models import emitter as emitterlib
 from ..models import sensor as sensorlib
 from ..models.emitter import EV_DIR, connect_emitter_vertex, sample_emitter_ray, scene_bsphere
 from ..ops import trace
-from . import bdptmis
+from ..utils import graphs
+from . import bdptmis, common
 from .common import RenderConfig
 
 RAY_EPS = 1e-3
@@ -285,31 +286,91 @@ def li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig) -> torch.Tenso
     return _li(scene, cam, o, d, stream, cfg, light_image=False)
 
 
+def _chunk_image(scene, cam, cfg: RenderConfig, layout, base, chunk: int):
+    """One spp chunk of the light image: (the eye strategies' per-pixel sum
+    (H, W, 3), the t=1 splats' film (H, W, 3)) of the samples base + slot
+    (common.chunk_layout; `base` a 0-dim int64 tensor on the device): the
+    work render_jit captures."""
+    w, h = cam.width, cam.height
+    pixel_ids, sample_slot, px_base, py_base = layout
+    stream = SampleStream(cfg.seed, pixel_ids, sample_slot + base, 0,
+                          kind=cfg.sampler, spp=cfg.spp)
+    jx = stream.next_1d()
+    jy = stream.next_1d()
+    u_lens = stream.next_2d()
+    o, d, imp = sensorlib.sample_rays(cam, px_base + jx, py_base + jy, u_lens)
+    film = torch.zeros((h * w, 3), dtype=torch.float32, device=o.device)
+    L = _li(scene, cam, o, d, stream, cfg, light_image=True, film=film)
+    L = torch.nan_to_num(L * imp[:, None], nan=0.0, posinf=0.0, neginf=0.0)
+    return torch.sum(L.reshape(h, w, chunk, 3), dim=2), film.reshape(h, w, 3)
+
+
+def _layout(scene, cam, cfg: RenderConfig):
+    chunk = cfg.resolve_chunk(cam.width, cam.height)
+    pixel_ids = torch.arange(cam.width * cam.height, dtype=torch.int64, device=scene.device)
+    return chunk, common.chunk_layout(pixel_ids, chunk, cam.width)
+
+
 def render(scene, cam, cfg: RenderConfig) -> torch.Tensor:
     """Full BDPT with the light image (bdpt_proc.cpp:347-352): the eye
     strategies accumulate per pixel, the t=1 strategies splat; both are
     divided by spp (w h light paths per sample slot). Box filter; the
     chunks are common.render's."""
-    dev = scene.device
-    w, h = cam.width, cam.height
-    chunk = cfg.resolve_chunk(w, h)
-    pixel_ids = torch.repeat_interleave(torch.arange(w * h, dtype=torch.int64, device=dev),
-                                        chunk)
-    sample_slot = torch.arange(chunk, dtype=torch.int64, device=dev).repeat(w * h)
-    px_base = (pixel_ids % w).to(torch.float32)
-    py_base = (pixel_ids // w).to(torch.float32)
-
-    img = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    chunk, layout = _layout(scene, cam, cfg)
+    img = torch.zeros((cam.height, cam.width, 3), dtype=torch.float32, device=scene.device)
     for ci in range(cfg.spp // chunk):
-        stream = SampleStream(cfg.seed, pixel_ids, sample_slot + ci * chunk, 0,
-                              kind=cfg.sampler, spp=cfg.spp)
-        jx = stream.next_1d()
-        jy = stream.next_1d()
-        u_lens = stream.next_2d()
-        o, d, imp = sensorlib.sample_rays(cam, px_base + jx, py_base + jy, u_lens)
-        film = torch.zeros((h * w, 3), dtype=torch.float32, device=dev)
-        L = _li(scene, cam, o, d, stream, cfg, light_image=True, film=film)
-        L = torch.nan_to_num(L * imp[:, None], nan=0.0, posinf=0.0, neginf=0.0)
-        img = img + torch.sum(L.reshape(h, w, chunk, 3), dim=2)
-        img = img + film.reshape(h, w, 3)
+        eye, film = _chunk_image(scene, cam, cfg, layout,
+                                 common._base(ci * chunk, scene.device), chunk)
+        img = img + eye
+        img = img + film
     return img / float(cfg.spp)
+
+
+class _ChunkImageGraph:
+    """render_jit's cache entry: static copies of the scene and camera, the
+    chunk's sample base on the device, the image, and the piece that adds
+    one chunk's eye sums and splats into it."""
+
+    def __init__(self, scene, cam, cfg: RenderConfig):
+        self.chunk, layout = _layout(scene, cam, cfg)
+        self.statics = graphs.Statics(scene, cam)
+        s_scene, s_cam = self.statics.trees
+        self.base = common._base(0, scene.device)
+        self.img = torch.zeros((cam.height, cam.width, 3), dtype=torch.float32,
+                               device=scene.device)
+
+        def add_chunk():
+            eye, film = _chunk_image(s_scene, s_cam, cfg, layout, self.base, self.chunk)
+            self.img.add_(eye)
+            self.img.add_(film)
+
+        self.piece = graphs.Piece(add_chunk)
+
+    def render(self, scene, cam, cfg: RenderConfig) -> torch.Tensor:
+        self.statics.load(scene, cam)
+        self.img.zero_()
+        for ci in range(cfg.spp // self.chunk):
+            self.base.fill_(ci * self.chunk)
+            self.piece.run()
+        return self.img / float(cfg.spp)
+
+
+_GRAPHS = graphs.Cache()
+
+
+def render_jit(scene, cam, cfg: RenderConfig) -> torch.Tensor:
+    """`render` (the light image), compiled and cached as the JAX package's
+    render_jit is (utils/graphs.py): on the card the first call of a key
+    (cfg, the scene's and camera's static_key) renders its first spp chunk
+    eagerly and captures the chunk (the eye strategies' sums and the light
+    image's `index_add_` splats into a static image); every later chunk and
+    call of the key replays it with the chunk's sample base written into a
+    device tensor. On the CPU this is `render`. A failed capture raises; a
+    leaf that requires grad raises NotImplementedError."""
+    graphs.refuse_grad("bdpt.render_jit", scene, cam)
+    if scene.device.type != "cuda":
+        return render(scene, cam, cfg)
+    key = (cfg, graphs.static_key(scene, cam))
+    with _GRAPHS.lock, torch.cuda.device(scene.device):
+        entry = _GRAPHS.get(key, lambda: _ChunkImageGraph(scene, cam, cfg))
+        return entry.render(scene, cam, cfg)

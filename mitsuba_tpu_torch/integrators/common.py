@@ -190,45 +190,45 @@ def render(scene, cam, li_fn: LiFn, cfg: RenderConfig, sample_offset: int = 0,
     return _finish(acc, cfg, rows, w, n_samples)
 
 
-class _ChunkGraph:
-    """render_jit's cache entry: private copies of a scene's and a camera's
-    tensors, the chunk's sample base, the film's accumulators and the
-    graph of one chunk added into them (None until the first chunk has
-    run eagerly)."""
+class ChunkGraph:
+    """A cache entry of render_jit and the sharded render_jit: private
+    copies of a scene's and a camera's tensors, the chunk's sample base,
+    the accumulators of these pixel ids' film and the piece of work that
+    adds one chunk into them (run eagerly first, then captured and
+    replayed: utils/graphs.Piece). `pixel_ids` (on the scene's device)
+    default to the full frame; `chunk` to cfg's for the full frame."""
 
-    def __init__(self, scene, cam, li_fn: LiFn, cfg: RenderConfig):
+    def __init__(self, scene, cam, li_fn: LiFn, cfg: RenderConfig, pixel_ids=None,
+                 chunk: int | None = None):
         w, h = cam.width, cam.height
         dev = scene.device
-        self.cfg = cfg
-        self.chunk = cfg.resolve_chunk(w, h)
+        if pixel_ids is None:
+            pixel_ids = torch.arange(w * h, dtype=torch.int64, device=dev)
+        self.chunk = cfg.resolve_chunk(w, h) if chunk is None else chunk
         self.statics = graphs.Statics(scene, cam)
         s_scene, s_cam = self.statics.trees
-        layout = chunk_layout(torch.arange(w * h, dtype=torch.int64, device=dev), self.chunk, w)
+        layout = chunk_layout(pixel_ids, self.chunk, w)
         self.base = _base(0, dev)
-        self.acc = _film_zeros(cfg.filter == filmlib.FILTER_BOX, w * h, cam, dev)
-        self.graph = None
+        self.acc = _film_zeros(cfg.filter == filmlib.FILTER_BOX, pixel_ids.shape[0], cam, dev)
 
         def add_chunk():
             sums = chunk_sum(s_scene, s_cam, li_fn, cfg, layout, self.base, self.chunk)
             for a, x in zip(self.acc, sums):
                 a.add_(x)
 
-        self.add_chunk = add_chunk
+        self.piece = graphs.Piece(add_chunk)
 
-    def render(self, scene, cam, sample_offset: int) -> torch.Tensor:
+    def sums(self, scene, cam, sample_base: int, n_samples: int) -> list:
+        """The accumulators after the chunks of the samples [sample_base,
+        sample_base + n_samples): radiance_sum's or film_sum's values, in
+        the entry's own tensors (the next call overwrites them)."""
         self.statics.load(scene, cam)
         for a in self.acc:
             a.zero_()
-        n_samples = self.cfg.spp // self.chunk * self.chunk
         for ci in range(n_samples // self.chunk):
-            self.base.fill_(sample_offset + ci * self.chunk)
-            if self.graph is None:
-                with torch.no_grad():
-                    self.add_chunk()
-                self.graph = graphs.capture(self.add_chunk)
-            else:
-                self.graph.replay()
-        return _finish(self.acc, self.cfg, cam.height, cam.width, n_samples)
+            self.base.fill_(sample_base + ci * self.chunk)
+            self.piece.run()
+        return self.acc
 
 
 _CHUNK_GRAPHS = graphs.Cache()
@@ -255,8 +255,10 @@ def render_jit(scene, cam, li_fn: LiFn, cfg: RenderConfig,
         return render(scene, cam, li_fn, cfg, sample_offset)
     key = (li_fn, cfg, graphs.static_key(scene, cam))
     with _CHUNK_GRAPHS.lock, torch.cuda.device(scene.device):
-        entry = _CHUNK_GRAPHS.get(key, lambda: _ChunkGraph(scene, cam, li_fn, cfg))
-        return entry.render(scene, cam, int(sample_offset))
+        entry = _CHUNK_GRAPHS.get(key, lambda: ChunkGraph(scene, cam, li_fn, cfg))
+        n_samples = cfg.spp // entry.chunk * entry.chunk
+        acc = entry.sums(scene, cam, int(sample_offset), n_samples)
+        return _finish(acc, cfg, cam.height, cam.width, n_samples)
 
 
 def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:

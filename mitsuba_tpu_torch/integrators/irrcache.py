@@ -194,8 +194,13 @@ def li_factory(cache):
 
 def render(scene, cam, cfg: RenderConfig, n_points: int = 4096,
            n_hemi: int = 64) -> torch.Tensor:
-    """Two-pass irradiance-cached render -> (H, W, 3)."""
+    """Two-pass irradiance-cached render -> (H, W, 3): the cache built
+    eagerly, then the film through common.render_jit, as the JAX package
+    renders it. Its Li is a new closure over this call's cache, so on the
+    card each call captures its own chunk graph (JAX compiles per call
+    alike); the graph's cache entry holds the closure, and with it the
+    cache's tensors the graph reads."""
     from . import common
 
     cache = build_cache(scene, cfg, n_points, n_hemi, seed=cfg.seed + 77)
-    return common.render(scene, cam, li_factory(cache), cfg)
+    return common.render_jit(scene, cam, li_factory(cache), cfg)

@@ -71,17 +71,20 @@ from ..ops import manifold as manif
 from ..ops import trace
 from ..ops.intersect import Intersection
 from ..scene import ir
+from ..utils import graphs
 from .common import RenderConfig
 
 LUM = (0.2126, 0.7152, 0.0722)
 _SPEC_DOT_TOL = 5e-4   # direction consistency: angle < ~0.03 rad
 
 
-def generator_draws(seed: int, device):
-    """The default `draws`: one torch.Generator seeded with `seed`,
-    uniforms by torch.rand and integers by torch.randint, in call order."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+def generator_draws(seed: int, device, gen=None):
+    """The default `draws`: one torch.Generator seeded with `seed` (or
+    `gen`, as it stands), uniforms by torch.rand and integers by
+    torch.randint, in call order."""
+    if gen is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
 
     def draw(name, shape, low=None, high=None):
         if high is not None:
@@ -364,7 +367,7 @@ def eval_path(scene, cam, pos, prim, k, K):
         f = f * _chain_G_product(scene, pos, prim, k, K, spec, modes_all)[:, None]
     f = torch.where(ok[:, None], f, 0.0)
     f = torch.nan_to_num(f, nan=0.0, posinf=0.0, neginf=0.0)
-    return f, f @ torch.tensor(LUM, dtype=torch.float32, device=f.device), pixel
+    return f, f @ m.const(LUM, f.device), pixel
 
 
 def _bsdf_area_pdf(scene, v_prev, v, prim, v_next, prim_next, spec_here=None,
@@ -555,7 +558,7 @@ def _raster_offset(cam, v1, u_r, u_phi):
     new primary ray. Returns (inside the film, o, d)."""
     w, h = cam.width, cam.height
     px0, py0, _, _ = sensorlib.world_to_raster(cam, v1)
-    r2 = torch.tensor(np.float32(0.05) * np.float32(max(w, h)), device=v1.device)
+    r2 = m.const(np.float32(0.05) * np.float32(max(w, h)), v1.device)
     r = r2 * torch.exp(-torch.log(r2 / 0.25) * u_r)
     phi = 2.0 * math.pi * u_phi
     pxn = px0 + r * torch.cos(phi)
@@ -573,8 +576,7 @@ def _angular_offsets(cam, u2):
     w, h = cam.width, cam.height
     rpp = cam.fov_x * (math.pi / 180.0) / float(w)          # rad per pixel
     th1 = 0.25 * rpp
-    th2 = rpp * torch.sqrt(torch.tensor(0.05 * w * h / math.pi, dtype=torch.float32,
-                                        device=u2.device))
+    th2 = rpp * torch.sqrt(m.const(0.05 * w * h / math.pi, u2.device))
     theta = th2 * torch.exp(-torch.log(th2 / th1) * u2[:, 2])
     sphi = 2.0 * math.pi * u2[:, 3]
     return torch.stack([torch.sin(theta) * torch.cos(sphi), torch.sin(theta) * torch.sin(sphi),
@@ -631,13 +633,15 @@ def _pick_nonspec(elig, cnt, uu):
     return (oh * torch.arange(elig.shape[1], device=elig.device)[None, :]).sum(1).to(torch.int32)
 
 
-def _propose_manifold(scene, pos_x, prim_x, k_x, spec_x, modes_x, a_f, offs, K):
+def _propose_manifold(scene, pos_x, prim_x, k_x, spec_x, modes_x, a_f, offs, K,
+                      fixed_walk=False):
     """F: the manifold perturbation (mut_manifold.cpp). Perturb the
     direction out of the non-spec vertex a by D's angular kernel,
     propagate through the a..b delta chain (real retrace), re-solve the
     b..c chain with the manifold walk so c stays fixed, and walk back to
-    the old b for reversibility (mut_manifold.cpp:510-520). Returns
-    (pos_y, prim_y, ok, G of x's a..b chain, G of y's)."""
+    the old b for reversibility (mut_manifold.cpp:510-520); `fixed_walk`:
+    both walks in the graph-safe form (manifold.walk's fixed=True).
+    Returns (pos_y, prim_y, ok, G of x's a..b chain, G of y's)."""
     MC = max(K - 1, 1)
     ch_prim_a, ch_modes_a, mlen_a, b_idx, bprim_x = _gather_chain_dyn(prim_x, spec_x, modes_x,
                                                                       a_f, K)
@@ -661,10 +665,11 @@ def _propose_manifold(scene, pos_x, prim_x, k_x, spec_x, modes_x, a_f, offs, K):
                             torch.gather(modes_x, 1, torch.clamp(raw_r, 0, K).long()), 0)
     x1_w = _take_v(pos_x, torch.clamp(c_idx - 1, 0, K))
     mlen_w = torch.clamp_min(mlen_bc, 1)
-    resw = manif.walk(scene, pos_c, x1_w, rev_modes, mlen_w, b_new)
+    resw = manif.walk(scene, pos_c, x1_w, rev_modes, mlen_w, b_new, fixed=fixed_walk)
     # reversibility: walking back to the old b must recover the old chain
     # head (mut_manifold.cpp statsNonReversible)
-    resr = manif.walk(scene, pos_c, resw.chain_pos[:, 0], rev_modes, mlen_w, pos_b_old)
+    resr = manif.walk(scene, pos_c, resw.chain_pos[:, 0], rev_modes, mlen_w, pos_b_old,
+                      fixed=fixed_walk)
     scale = 1.0 + m.length(pos_b_old - pos_c)
     rev_ok = resr.ok & (m.length(resr.chain_pos[:, 0] - x1_w) < 1e-3 * scale)
     walk_ok = torch.where(need_walk, resw.ok & rev_ok, True)
@@ -722,144 +727,255 @@ def _bootstrap(scene, cam, K, n_bootstrap, draw):
 def seed_chains(wgt, u_pick):
     """Bootstrap indices drawn in proportion to `wgt`: u_pick scaled to the
     weights' total (at least 1e-30), searched (left) in the running sum.
-    torch's cumsum rounds otherwise than XLA's (ROADMAP C39)."""
-    cdf = torch.cumsum(wgt, 0)
-    idx = torch.searchsorted(cdf, u_pick * torch.clamp_min(cdf[-1], 1e-30))
-    return torch.clamp(idx, 0, wgt.shape[0] - 1)
+    torch's cumsum rounds otherwise than XLA's (ROADMAP C39); the sum and
+    the search run on the host, in order, as pssmlt.seed_chains's (C48)."""
+    cdf = torch.cumsum(wgt.cpu(), 0)
+    idx = torch.searchsorted(cdf, u_pick.cpu() * torch.clamp_min(cdf[-1], 1e-30))
+    return torch.clamp(idx, 0, wgt.shape[0] - 1).to(wgt.device)
 
 
-def render(scene, cam, cfg: RenderConfig, n_chains: int = 1 << 14, n_mutations: int = 384,
-           n_bootstrap: int = 1 << 16, return_stats: bool = False, draws=None):
-    """MLT render -> (H, W, 3) [, {"acceptance": (n_modes,) per kernel, "b"}].
-    Path evaluations: n_bootstrap + n_chains * (n_mutations + 1)."""
-    w, h = cam.width, cam.height
+def _start(scene, cam, cfg: RenderConfig, draw, n_chains: int, n_bootstrap: int):
+    """The bootstrap, its weights' CDF and the chains' seeds. Returns
+    (state, b): state = (pos, prim, k, f, L, pixel) of every chain."""
     K = cfg.max_depth
-    n = n_chains
-    dev = scene.device
-    draw = draws or generator_draws(cfg.seed, dev)
-
     posb, primb, kb, wgt, b = _bootstrap(scene, cam, K, n_bootstrap, draw)
-    sidx = seed_chains(wgt, draw("pick", (n,)))
+    sidx = seed_chains(wgt, draw("pick", (n_chains,)))
     pos_x, prim_x, k_x = posb[sidx], primb[sidx], kb[sidx]
-    f_x, l_x, px_x = eval_path(scene, cam, pos_x, prim_x, k_x, K)
+    return (pos_x, prim_x, k_x, *eval_path(scene, cam, pos_x, prim_x, k_x, K)), b
 
-    has_spec = _scene_has_spec(scene)
-    n_modes = 6 if has_spec else 5      # F only exists with delta chains
-    img = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
-    acc = torch.zeros((n_modes,), dtype=torch.float32, device=dev)
+
+def _mutate(scene, cam, cfg: RenderConfig, draw, mode_i: int, has_spec: bool, state, img,
+            acc, b, fixed_walk: bool = False):
+    """One mutation of every chain by kernel mode_i: the draws (all of a
+    step's, whichever kernel runs), the proposal, eval_path, the
+    transition densities, both states' splats into img, the kernel's
+    acceptance into acc[mode_i], the accept. Returns the new state (the
+    work render_jit captures, one graph per kernel)."""
+    pos_x, prim_x, k_x, f_x, l_x, px_x = state
+    K = cfg.max_depth
+    n = pos_x.shape[0]
+    dev = pos_x.device
     idxv = torch.arange(K + 1, device=dev)[None, :]
-    for step in range(n_mutations):
-        mode_i = step % n_modes
-        u = draw("cut", (n, 4))
-        u_steps, u_light = _regen_draws(draw, ("regen", "regen_light"), n, K)
-        u2 = draw("perturb", (n, 4))
-        uf = draw("manifold", (n, 1)) if mode_i == 5 else None
-        u_acc = draw("accept", (n,))
+    u = draw("cut", (n, 4))
+    u_steps, u_light = _regen_draws(draw, ("regen", "regen_light"), n, K)
+    u2 = draw("perturb", (n, 4))
+    uf = draw("manifold", (n, 1)) if mode_i == 5 else None
+    u_acc = draw("accept", (n,))
 
+    if has_spec:
+        # cuts and perturbation anchors live on NON-SPEC vertices only
+        # (delta vertices are derived state on the quotient manifold)
+        spec_x = _spec_flags(scene, prim_x, k_x, K)
+        modes_x = _chain_modes(scene, pos_x, prim_x, K)
+        elig_x = (~spec_x) & (idxv <= (k_x - 1)[:, None])
+        cnt_x = elig_x.sum(1).to(torch.int32)
+
+    # ---- propose ----
+    if mode_i <= 1:
+        mode_hit = torch.full((n,), mode_i == 1, dtype=torch.bool, device=dev)
         if has_spec:
-            # cuts and perturbation anchors live on NON-SPEC vertices only
-            # (delta vertices are derived state on the quotient manifold)
-            spec_x = _spec_flags(scene, prim_x, k_x, K)
-            modes_x = _chain_modes(scene, pos_x, prim_x, K)
-            elig_x = (~spec_x) & (idxv <= (k_x - 1)[:, None])
-            cnt_x = elig_x.sum(1).to(torch.int32)
-
-        # ---- propose ----
-        if mode_i <= 1:
-            mode_hit = torch.full((n,), mode_i == 1, dtype=torch.bool, device=dev)
-            if has_spec:
-                c = _pick_nonspec(elig_x, cnt_x, u[:, 0])
-            else:
-                c = (u[:, 0] * k_x.to(torch.float32)).to(torch.int32)
-                c = torch.minimum(torch.clamp_min(c, 0), torch.clamp_min(k_x - 1, 0))
-            # A: k' uniform in [c+1, K]; B: set by the trace
-            span = (K - c).to(torch.float32)
-            k_new = c + 1 + (u[:, 1] * span).to(torch.int32)
-            k_new = torch.clamp_max(torch.maximum(k_new, c + 1), K)
-            pos_y, prim_y, k_y, ok_y = _regen(scene, cam, u_steps, u_light, pos_x, prim_x, k_x,
-                                              c, k_new, K, mode_hit)
-        elif mode_i == 2:
-            pos_y, prim_y, ok_y = _propose_lens(scene, cam, pos_x, prim_x, u)
-        elif mode_i == 3:
-            pos_y, prim_y, ok_y = _propose_caustic(scene, pos_x, prim_x, k_x,
-                                                   _angular_offsets(cam, u2))
-        elif mode_i == 4:
-            pos_y, prim_y, ok_y = _propose_multichain(scene, cam, pos_x, prim_x, k_x, u2,
-                                                      _angular_offsets(cam, u2))
+            c = _pick_nonspec(elig_x, cnt_x, u[:, 0])
         else:
-            a_f = _pick_nonspec(elig_x, cnt_x, uf[:, 0])
-            pos_y, prim_y, ok_y, g_x, g_y = _propose_manifold(
-                scene, pos_x, prim_x, k_x, spec_x, modes_x, a_f, _angular_offsets(cam, u2), K)
-        if mode_i >= 2:
-            k_y = k_x
+            c = (u[:, 0] * k_x.to(torch.float32)).to(torch.int32)
+            c = torch.minimum(torch.clamp_min(c, 0), torch.clamp_min(k_x - 1, 0))
+        # A: k' uniform in [c+1, K]; B: set by the trace
+        span = (K - c).to(torch.float32)
+        k_new = c + 1 + (u[:, 1] * span).to(torch.int32)
+        k_new = torch.clamp_max(torch.maximum(k_new, c + 1), K)
+        pos_y, prim_y, k_y, ok_y = _regen(scene, cam, u_steps, u_light, pos_x, prim_x, k_x,
+                                          c, k_new, K, mode_hit)
+    elif mode_i == 2:
+        pos_y, prim_y, ok_y = _propose_lens(scene, cam, pos_x, prim_x, u)
+    elif mode_i == 3:
+        pos_y, prim_y, ok_y = _propose_caustic(scene, pos_x, prim_x, k_x,
+                                               _angular_offsets(cam, u2))
+    elif mode_i == 4:
+        pos_y, prim_y, ok_y = _propose_multichain(scene, cam, pos_x, prim_x, k_x, u2,
+                                                  _angular_offsets(cam, u2))
+    else:
+        a_f = _pick_nonspec(elig_x, cnt_x, uf[:, 0])
+        pos_y, prim_y, ok_y, g_x, g_y = _propose_manifold(
+            scene, pos_x, prim_x, k_x, spec_x, modes_x, a_f, _angular_offsets(cam, u2), K,
+            fixed_walk)
+    if mode_i >= 2:
+        k_y = k_x
 
-        # ---- evaluate ----
-        f_y, l_y, px_y = eval_path(scene, cam, pos_y, prim_y, k_y, K)
-        l_y = torch.where(ok_y, l_y, 0.0)
+    # ---- evaluate ----
+    f_y, l_y, px_y = eval_path(scene, cam, pos_y, prim_y, k_y, K)
+    l_y = torch.where(ok_y, l_y, 0.0)
 
-        # ---- transition densities ----
-        if mode_i <= 1:
-            t_xy = regen_pdf(scene, cam, pos_y, prim_y, k_y, c, K, mode_hit)
-            t_yx = regen_pdf(scene, cam, pos_x, prim_x, k_x, c, K, mode_hit)
-            if has_spec:
-                # the cut was uniform over NON-SPEC vertices
-                spec_y = _spec_flags(scene, prim_y, k_y, K)
-                cnt_y = ((~spec_y) & (idxv <= (k_y - 1)[:, None])).sum(1)
-                den_x = torch.clamp_min(cnt_x.to(torch.float32), 1.0)
-                den_y = torch.clamp_min(cnt_y.to(torch.float32), 1.0)
-            else:
-                den_x = torch.clamp_min(k_x.to(torch.float32), 1.0)
-                den_y = torch.clamp_min(k_y.to(torch.float32), 1.0)
-            if mode_i == 0:
-                n_len = torch.clamp_min(span, 1.0)
-                t_xy, t_yx = t_xy / n_len, t_yx / n_len
-            t_xy, t_yx = t_xy / den_x, t_yx / den_y
-        elif mode_i == 2:
-            # the raster offset pdf is symmetric: the raster -> area
-            # Jacobians remain
-            t_xy = _cam_area_pdf(scene, cam, pos_y[:, 1], prim_y[:, 1])
-            t_yx = _cam_area_pdf(scene, cam, pos_x[:, 1], prim_x[:, 1])
-        elif mode_i == 3:
-            # the angular kernel is symmetric: the angle -> area Jacobian at
-            # v1 remains
-            t_xy = _geom_jac(scene, pos_y[:, 2], pos_y[:, 1], prim_y[:, 1])
-            t_yx = _geom_jac(scene, pos_x[:, 2], pos_x[:, 1], prim_x[:, 1])
-        elif mode_i == 4:
-            # the raster Jacobian at v1 times the angle -> area one at v2
-            t_xy = _cam_area_pdf(scene, cam, pos_y[:, 1], prim_y[:, 1]) \
-                * _geom_jac(scene, pos_y[:, 1], pos_y[:, 2], prim_y[:, 2])
-            t_yx = _cam_area_pdf(scene, cam, pos_x[:, 1], prim_x[:, 1]) \
-                * _geom_jac(scene, pos_x[:, 1], pos_x[:, 2], prim_x[:, 2])
+    # ---- transition densities ----
+    if mode_i <= 1:
+        t_xy = regen_pdf(scene, cam, pos_y, prim_y, k_y, c, K, mode_hit)
+        t_yx = regen_pdf(scene, cam, pos_x, prim_x, k_x, c, K, mode_hit)
+        if has_spec:
+            # the cut was uniform over NON-SPEC vertices
+            spec_y = _spec_flags(scene, prim_y, k_y, K)
+            cnt_y = ((~spec_y) & (idxv <= (k_y - 1)[:, None])).sum(1)
+            den_x = torch.clamp_min(cnt_x.to(torch.float32), 1.0)
+            den_y = torch.clamp_min(cnt_y.to(torch.float32), 1.0)
         else:
-            # the dw -> dA conversion through each path's a..b chain
-            t_xy, t_yx = g_y, g_x
+            den_x = torch.clamp_min(k_x.to(torch.float32), 1.0)
+            den_y = torch.clamp_min(k_y.to(torch.float32), 1.0)
+        if mode_i == 0:
+            n_len = torch.clamp_min(span, 1.0)
+            t_xy, t_yx = t_xy / n_len, t_yx / n_len
+        t_xy, t_yx = t_xy / den_x, t_yx / den_y
+    elif mode_i == 2:
+        # the raster offset pdf is symmetric: the raster -> area Jacobians
+        # remain
+        t_xy = _cam_area_pdf(scene, cam, pos_y[:, 1], prim_y[:, 1])
+        t_yx = _cam_area_pdf(scene, cam, pos_x[:, 1], prim_x[:, 1])
+    elif mode_i == 3:
+        # the angular kernel is symmetric: the angle -> area Jacobian at v1
+        # remains
+        t_xy = _geom_jac(scene, pos_y[:, 2], pos_y[:, 1], prim_y[:, 1])
+        t_yx = _geom_jac(scene, pos_x[:, 2], pos_x[:, 1], prim_x[:, 1])
+    elif mode_i == 4:
+        # the raster Jacobian at v1 times the angle -> area one at v2
+        t_xy = _cam_area_pdf(scene, cam, pos_y[:, 1], prim_y[:, 1]) \
+            * _geom_jac(scene, pos_y[:, 1], pos_y[:, 2], prim_y[:, 2])
+        t_yx = _cam_area_pdf(scene, cam, pos_x[:, 1], prim_x[:, 1]) \
+            * _geom_jac(scene, pos_x[:, 1], pos_x[:, 2], prim_x[:, 2])
+    else:
+        # the dw -> dA conversion through each path's a..b chain
+        t_xy, t_yx = g_y, g_x
 
-        # ---- accept ----
-        num = l_y * t_yx
-        den = l_x * t_xy
-        a = torch.clamp(m.safe_div(num, torch.clamp_min(den, 1e-30)), 0.0, 1.0)
-        a = torch.where((l_x <= 0) | (den <= 0), torch.where(l_y > 0, 1.0, 0.0), a)
-        a = torch.where(ok_y, a, 0.0)
+    # ---- accept ----
+    num = l_y * t_yx
+    den = l_x * t_xy
+    a = torch.clamp(m.safe_div(num, torch.clamp_min(den, 1e-30)), 0.0, 1.0)
+    a = torch.where((l_x <= 0) | (den <= 0), torch.where(l_y > 0, 1.0, 0.0), a)
+    a = torch.where(ok_y, a, 0.0)
 
-        # expected-value splats of both states
-        w_x = torch.where(l_x > 0, (1.0 - a) * b / torch.clamp_min(l_x, 1e-12), 0.0)
-        w_y = torch.where(l_y > 0, a * b / torch.clamp_min(l_y, 1e-12), 0.0)
-        img.index_add_(0, px_x.long(), f_x * w_x[:, None])
-        img.index_add_(0, px_y.long(), f_y * w_y[:, None])
+    # expected-value splats of both states
+    w_x = torch.where(l_x > 0, (1.0 - a) * b / torch.clamp_min(l_x, 1e-12), 0.0)
+    w_y = torch.where(l_y > 0, a * b / torch.clamp_min(l_y, 1e-12), 0.0)
+    img.index_add_(0, px_x.long(), f_x * w_x[:, None])
+    img.index_add_(0, px_y.long(), f_y * w_y[:, None])
+    acc[mode_i] += torch.mean(a)
 
-        take = u_acc < a
-        pos_x = torch.where(take[:, None, None], pos_y, pos_x)
-        prim_x = torch.where(take[:, None], prim_y, prim_x)
-        k_x = torch.where(take, k_y, k_x)
-        f_x = torch.where(take[:, None], f_y, f_x)
-        l_x = torch.where(take, l_y, l_x)
-        px_x = torch.where(take, px_y, px_x)
-        acc[mode_i] += torch.mean(a)
+    take = u_acc < a
+    return (torch.where(take[:, None, None], pos_y, pos_x),
+            torch.where(take[:, None], prim_y, prim_x),
+            torch.where(take, k_y, k_x),
+            torch.where(take[:, None], f_y, f_x),
+            torch.where(take, l_y, l_x),
+            torch.where(take, px_y, px_x))
 
+
+def _n_modes(has_spec: bool) -> int:
+    return 6 if has_spec else 5      # F only exists with delta chains
+
+
+def _finish(img, acc, b, cam, n_chains: int, n_mutations: int, n_modes: int,
+            return_stats: bool):
     # f carries the per-pixel-uniform camera importance, so the b-normalised
     # splat sum over chains x mutations IS the per-pixel radiance estimate
+    w, h = cam.width, cam.height
     img = (img / float(np.float32(n_chains * n_mutations))).reshape(h, w, 3)
     if return_stats:
         per_mode = acc / max(float(np.float32(n_mutations)) / n_modes, 1.0)
         return img, {"acceptance": per_mode, "b": b}
     return img
+
+
+def render(scene, cam, cfg: RenderConfig, n_chains: int = 1 << 14, n_mutations: int = 384,
+           n_bootstrap: int = 1 << 16, return_stats: bool = False, draws=None):
+    """MLT render -> (H, W, 3) [, {"acceptance": (n_modes,) per kernel, "b"}].
+    Path evaluations: n_bootstrap + n_chains * (n_mutations + 1). Kernel
+    F's manifold walks exit early (one host read a Newton iteration);
+    render_jit's run the graph-safe form, with the same results."""
+    dev = scene.device
+    draw = draws or generator_draws(cfg.seed, dev)
+    state, b = _start(scene, cam, cfg, draw, n_chains, n_bootstrap)
+    has_spec = _scene_has_spec(scene)
+    n_modes = _n_modes(has_spec)
+    img = torch.zeros((cam.width * cam.height, 3), dtype=torch.float32, device=dev)
+    acc = torch.zeros((n_modes,), dtype=torch.float32, device=dev)
+    for step in range(n_mutations):
+        state = _mutate(scene, cam, cfg, draw, step % n_modes, has_spec, state, img, acc, b)
+    return _finish(img, acc, b, cam, n_chains, n_mutations, n_modes, return_stats)
+
+
+class _ModeGraphs:
+    """render_jit's cache entry: static copies of the scene and camera, a
+    generator, the chains' state, b, the image and the kernels'
+    acceptance sums, and one piece per mutation kernel (its first step
+    eager, then captured; F's walks in the graph-safe form), each writing
+    the new state into the static one."""
+
+    def __init__(self, scene, cam, cfg: RenderConfig, n_chains: int, has_spec: bool):
+        dev = scene.device
+        K = cfg.max_depth
+        n_modes = _n_modes(has_spec)
+        self.statics = graphs.Statics(scene, cam)
+        s_scene, s_cam = self.statics.trees
+        self.gen = torch.Generator(device=dev)
+        self.draw = generator_draws(None, dev, self.gen)
+        self.state = (torch.zeros((n_chains, K + 1, 3), device=dev),
+                      torch.zeros((n_chains, K + 1), dtype=torch.int32, device=dev),
+                      torch.zeros((n_chains,), dtype=torch.int32, device=dev),
+                      torch.zeros((n_chains, 3), device=dev),
+                      torch.zeros((n_chains,), device=dev),
+                      torch.zeros((n_chains,), dtype=torch.int64, device=dev))
+        self.b = torch.zeros((), device=dev)
+        self.img = torch.zeros((cam.width * cam.height, 3), device=dev)
+        self.acc = torch.zeros((n_modes,), device=dev)
+
+        def step(mode_i):
+            new = _mutate(s_scene, s_cam, cfg, self.draw, mode_i, has_spec, self.state,
+                          self.img, self.acc, self.b, fixed_walk=True)
+            for dst, src in zip(self.state, new, strict=True):
+                dst.copy_(src)
+
+        self.pieces = [graphs.Piece(lambda i=i: step(i), generators=(self.gen,))
+                       for i in range(n_modes)]
+
+    def run(self, scene, cam, cfg: RenderConfig, n_chains: int, n_mutations: int,
+            n_bootstrap: int):
+        self.statics.load(scene, cam)
+        self.gen.manual_seed(int(cfg.seed))
+        with torch.no_grad():
+            state, b = _start(*self.statics.trees, cfg, self.draw, n_chains, n_bootstrap)
+        graphs.copy_leaves(self.state, state)
+        self.b.copy_(b)
+        self.img.zero_()
+        self.acc.zero_()
+        for step in range(n_mutations):
+            self.pieces[step % len(self.pieces)].run()
+        return self.img, self.acc, b
+
+
+_GRAPHS = graphs.Cache()
+
+
+def render_jit(scene, cam, cfg: RenderConfig, n_chains: int = 1 << 14, n_mutations: int = 384,
+               n_bootstrap: int = 1 << 16, return_stats: bool = False, draws=None):
+    """`render`, compiled and cached as the JAX package's render_jit is
+    (utils/graphs.py). On the card the bootstrap and the seeding run
+    eagerly once a call; the first call of a key (cfg, the counts, whether
+    the scene has delta chains, hence 5 or 6 kernels, and the scene's and
+    camera's static_key) runs each kernel's first mutation eagerly and
+    captures that kernel's mutation, one graph a kernel, the entry's
+    generator registered with each; every later step replays its kernel's
+    graph, in the eager order (kernel step % n_modes). Kernel F's manifold
+    walks run in the graph-safe form (manifold.walk's fixed=True: 20
+    Newton iterations a walk in place of the eager walk's early exit, the
+    same results), so the chains draw and step as `render`'s of the same
+    seed do (pssmlt.render_jit's note on the splats' order). On the CPU
+    this is `render`. `draws` (a host-made hook) raises ValueError
+    on the card; a leaf that requires grad raises NotImplementedError; a
+    failed capture raises."""
+    graphs.refuse_grad("mlt.render_jit", scene, cam)
+    if scene.device.type != "cuda":
+        return render(scene, cam, cfg, n_chains, n_mutations, n_bootstrap, return_stats, draws)
+    graphs.refuse_hook("mlt.render_jit", draws=draws)
+    has_spec = _scene_has_spec(scene)
+    key = (cfg, n_chains, n_mutations, n_bootstrap, has_spec, _n_modes(has_spec),
+           graphs.static_key(scene, cam))
+    with _GRAPHS.lock, torch.cuda.device(scene.device):
+        entry = _GRAPHS.get(key, lambda: _ModeGraphs(scene, cam, cfg, n_chains, has_spec))
+        img, acc, b = entry.run(scene, cam, cfg, n_chains, n_mutations, n_bootstrap)
+        return _finish(img, acc, b, cam, n_chains, n_mutations, _n_modes(has_spec),
+                       return_stats)

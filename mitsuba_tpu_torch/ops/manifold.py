@@ -36,8 +36,14 @@ The loop: the JAX package's `lax.while_loop` runs while ANY lane is not
 done, still ok and has a step above 1e-5 (a global condition), and every
 lane's state is updated on every iteration it runs, so a lane whose step
 has shrunk keeps moving while another lane holds the loop open.
-`iterations` is that global count. The port runs the same condition as a
-Python `while`, one host read per Newton iteration.
+`iterations` is that global count. The port's `walk` runs the same
+condition as a Python `while`, one host read per Newton iteration; with
+`fixed=True` it runs max_iterations iterations with the condition computed
+on the device and every update gated on it, so an iteration after the
+condition has fallen changes nothing and `iterations` is counted on the
+device: the same results, bit for bit, with no host read (a CUDA graph can
+hold it; MLT's render_jit does). That is the JAX `lax.while_loop` without
+its early exit: the fixed form pays every iteration.
 """
 from __future__ import annotations
 
@@ -267,13 +273,14 @@ def _length2(e):
 
 
 def walk(scene, x0, x1, modes, m_len, target,
-         max_iterations: int = MAX_ITERATIONS) -> WalkResult:
+         max_iterations: int = MAX_ITERATIONS, fixed: bool = False) -> WalkResult:
     """Move the endpoint of N specular chains to `target`.
 
     SpecularManifold::move (manifold.cpp) as one batched Newton loop: x0
     the fixed endpoint, x1 the initial first specular vertex (ON the scene
     surface), modes/m_len the chain, target the desired new position of
-    the non-specular endpoint after the chain."""
+    the non-specular endpoint after the chain. `fixed`: the graph-safe
+    form (module note), max_iterations iterations and no host read."""
     N, _ = modes.shape
     dev = x0.device
 
@@ -293,8 +300,12 @@ def walk(scene, x0, x1, modes, m_len, target,
     x1c, cpc, cprc, epc, eprc = cp[:, 0], cp, cpr, ep, epr
     step = torch.ones((N,), dtype=torch.float32, device=dev)
     done = torch.zeros((N,), dtype=torch.bool, device=dev)
+    count = torch.zeros((N,), dtype=torch.int32, device=dev)
     it = 0
-    while it < max_iterations and bool(torch.any(~done & ok0 & (step > 1e-5))):
+    while it < max_iterations:
+        go = torch.any(~done & ok0 & (step > 1e-5))
+        if not fixed and not bool(go):
+            break
         _, _, _, ng_end = _tri(scene, eprc)
         tb1, tb2 = _onb(ng_end)
         e_cur = err_of(epc, tb1, tb2)
@@ -322,7 +333,7 @@ def walk(scene, x0, x1, modes, m_len, target,
         e_new = err_of(ep_t, tb1_t, tb2_t)
         improve = rt_ok & inv_ok & (_length2(e_new) < _length2(e_cur))
 
-        upd = improve & ~done
+        upd = improve & ~done & go
         x1c = torch.where(upd[:, None], cp_t[:, 0], x1c)
         cpc = torch.where(upd[:, None, None], cp_t, cpc)
         cprc = torch.where(upd[:, None], cpr_t, cprc)
@@ -330,14 +341,14 @@ def walk(scene, x0, x1, modes, m_len, target,
         eprc = torch.where(upd, epr_t, eprc)
         # step-size control (manifold.cpp move(): halve on failure, restore
         # toward 1 on success)
-        step = torch.where(done, step, torch.where(improve, torch.clamp_max(step * 2.0, 1.0),
-                                                   step * 0.5))
+        step = torch.where(done | ~go, step,
+                           torch.where(improve, torch.clamp_max(step * 2.0, 1.0), step * 0.5))
         e_eff = torch.where(upd[:, None], e_new, e_cur)
-        done = done | (_length2(e_eff) < tol)
+        done = done | (go & (_length2(e_eff) < tol))
+        count = count + go.to(torch.int32)
         it += 1
     return WalkResult(chain_pos=cpc, chain_prim=cprc, end_pos=epc, end_prim=eprc,
-                      ok=ok0 & done,
-                      iterations=torch.full((N,), it, dtype=torch.int32, device=dev))
+                      ok=ok0 & done, iterations=count)
 
 
 def generalized_G(scene, x0, x1_dir, chain_prim, modes, m_len, end_prim, ns0=None):

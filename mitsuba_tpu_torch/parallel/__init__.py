@@ -11,9 +11,11 @@ by collectives (sched_remote.h:221-237). Each rank loads the scene itself
 from . import render_sharded as _rs_module  # noqa: F401
 from .render_sharded import (  # noqa: F401
     make_mesh,
+    render_sharded_jit,
     start_group,
     train_step,
 )
 
 # `render_sharded` (the function) would shadow the submodule of the same
-# name in this namespace; reach the function through the submodule.
+# name in this namespace; reach the function through the submodule, or use
+# render_sharded_jit.

@@ -38,11 +38,12 @@ import torch
 import torch.distributed as dist
 
 from ..film import film as filmlib
-from ..integrators.common import RenderConfig
+from ..integrators.common import ChunkGraph, RenderConfig
 # the shard sums are common.render's own loop over arbitrary pixel ids and
 # sample ranges (the JAX package's names)
 from ..integrators.common import film_sum as _film_sum
 from ..integrators.common import radiance_sum as _radiance_sum
+from ..utils import graphs
 
 
 def rank_device(local_rank: int, cpu: bool = False) -> torch.device:
@@ -198,8 +199,47 @@ def render_sharded(scene, cam, li_fn, cfg: RenderConfig, mesh) -> torch.Tensor:
                              spp_local, chunk)
         return filmlib.develop(_all_reduce(img), _all_reduce(wgt))
     acc = _radiance_sum(scene, cam, li_fn, cfg, pixel_ids, base, spp_local, chunk)
+    return _gather_box(acc, cam, cfg, mesh)
+
+
+def _gather_box(acc, cam, cfg: RenderConfig, mesh) -> torch.Tensor:
+    """The box film's image from each rank's pixel sums: summed over "sp",
+    gathered over "dp"."""
+    w, h = cam.width, cam.height
     acc = _all_reduce(acc, mesh.get_group("sp")) / float(cfg.spp)
     return _all_gather(acc, mesh.get_group("dp"))[:w * h].reshape(h, w, 3)
+
+
+_SHARD_GRAPHS = graphs.Cache()
+
+
+def render_sharded_jit(scene, cam, li_fn, cfg: RenderConfig, mesh) -> torch.Tensor:
+    """`render_sharded`, compiled and cached as the JAX package's
+    render_sharded_jit is. On the card each rank renders its shard's spp
+    chunks over its own pixel ids through a chunk graph
+    (integrators/common.ChunkGraph: the first chunk of a key eager, then
+    captured and replayed), keyed by (li_fn, cfg, the mesh's shape and
+    this rank's place in it, the scene's and camera's static_key); the
+    all-reduce and all-gather run outside the graph (gloo's host copies
+    cannot be captured). On the CPU this is `render_sharded`. A failed
+    capture raises; a leaf that requires grad raises
+    NotImplementedError."""
+    graphs.refuse_grad("render_sharded_jit", scene, cam)
+    if scene.device.type != "cuda":
+        return render_sharded(scene, cam, li_fn, cfg, mesh)
+    _, pixel_ids, base, spp_local, chunk = _layout(scene, cam, cfg, mesh)
+    w, h = cam.width, cam.height
+    box = cfg.filter == filmlib.FILTER_BOX
+    place = (mesh["dp"].size(), mesh["sp"].size(), mesh.get_local_rank("dp"),
+             mesh.get_local_rank("sp"))
+    key = (li_fn, cfg, place, graphs.static_key(scene, cam))
+    with _SHARD_GRAPHS.lock, torch.cuda.device(scene.device):
+        entry = _SHARD_GRAPHS.get(key, lambda: ChunkGraph(
+            scene, cam, li_fn, cfg, pixel_ids if box else _unpadded(pixel_ids, w * h), chunk))
+        acc = entry.sums(scene, cam, base, spp_local)
+        if box:
+            return _gather_box(acc[0], cam, cfg, mesh)
+        return filmlib.develop(_all_reduce(acc[0]), _all_reduce(acc[1]))
 
 
 def _float_leaves(obj, prefix=()):

@@ -20,11 +20,22 @@ eager code. The kernel wrappers count a launch recorded during a capture
 in `CAPTURED_LAUNCHES`, not in `KERNEL_LAUNCHES`; a `Graph` keeps the
 launches it holds and adds them to `KERNEL_LAUNCHES` on every replay, so a
 path's launch count is the same eager or replayed.
+
+Work that draws from a `torch.Generator` (the Metropolis chains' uniforms)
+captures with that generator registered (`capture(..., generators=)`):
+each replay then draws at the generator's current offset and advances it
+by what the captured draws take, as the same draws made eagerly would, so
+a replayed chain draws the numbers of the eager chain of the same seed.
+`Piece` is the pattern every entry point follows: a piece of work that
+runs eagerly the first time, is captured right after, and replays from
+then on.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import gc
 import threading
 
 import torch
@@ -106,10 +117,17 @@ class Statics:
         self.trees = _rebuild(trees, iter(self.leaves))
 
     def load(self, *trees):
-        leaves = []
-        _walk(trees, leaves)
-        for dst, src in zip(self.leaves, leaves, strict=True):
-            dst.copy_(src.detach())
+        copy_leaves(self.leaves, trees)
+
+
+def copy_leaves(dst, src):
+    """Copy src's tensor leaves into dst's, a tree of the same structure
+    (a captured prologue writes its outputs into the eager run's)."""
+    into, leaves = [], []
+    _walk(dst, into)
+    _walk(src, leaves)
+    for d, x in zip(into, leaves, strict=True):
+        d.copy_(x.detach())
 
 
 # ---------------------------------------------------------------------------
@@ -142,21 +160,50 @@ class Graph:
         STATS["replays"] += 1
 
 
-def capture(fn) -> Graph:
+_COLLECTOR = {"captures": 0, "enabled": False}
+_COLLECTOR_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _collector_off():
+    """Python's cyclic collector off while any thread captures: an entry
+    dropped from a cache holds its graphs in reference cycles, and the
+    collector destroying one during a capture would end the capture."""
+    with _COLLECTOR_LOCK:
+        if _COLLECTOR["captures"] == 0:
+            _COLLECTOR["enabled"] = gc.isenabled()
+            gc.disable()
+        _COLLECTOR["captures"] += 1
+    try:
+        yield
+    finally:
+        with _COLLECTOR_LOCK:
+            _COLLECTOR["captures"] -= 1
+            if _COLLECTOR["captures"] == 0 and _COLLECTOR["enabled"]:
+                gc.enable()
+
+
+def capture(fn, generators=()) -> Graph:
     """Capture fn() into a CUDA graph on the current device. fn takes no
     arguments, works on static tensors only, and has run eagerly on the
     same shapes before (the caller's first piece of work, which settles
     the kernels' plans and every table built at first use); what it
-    returns is dropped. Raises RuntimeError where the capture fails (a
-    host read, a copy from pageable host memory); nothing is counted
-    then."""
+    returns is dropped. `generators`: the torch.Generators fn draws from,
+    registered with the graph before the capture (the card's default
+    generator always is), so that each replay draws where the generator
+    stands and moves it on as the eager draws would. Raises RuntimeError
+    where the capture fails (a host read, a copy from pageable host
+    memory); nothing is counted then."""
     before = _captured()
     stream = torch.cuda.current_stream()
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     try:
         # thread_local: another thread's scene loads and eager renders
         # (the CLI's -j pool) may run while this thread captures
-        with torch.no_grad(), torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with _collector_off(), torch.no_grad(), \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
             fn()
     except Exception as e:
         # a failed capture leaves the capture's side stream current
@@ -166,6 +213,35 @@ def capture(fn) -> Graph:
             for was, after in zip(before, _captured())]
     STATS["captures"] += 1
     return Graph(graph, held)
+
+
+class Piece:
+    """A piece of work of fixed shapes that an entry point repeats: `run()`
+    runs fn eagerly the first time, captures it right after (with its
+    `generators`), and replays the graph from then on."""
+
+    def __init__(self, fn, generators=()):
+        self.fn = fn
+        self.generators = tuple(generators)
+        self.graph = None
+
+    def run(self):
+        if self.graph is None:
+            with torch.no_grad():
+                self.fn()
+            self.graph = capture(self.fn, self.generators)
+        else:
+            self.graph.replay()
+
+
+def refuse_hook(entry: str, **hooks):
+    """Raise ValueError where a draws hook is given to a render_jit on the
+    card: its tensors are made on the host per call, which a graph cannot
+    replay (render takes it)."""
+    for name, hook in hooks.items():
+        if hook is not None:
+            raise ValueError(f"{entry}: `{name}` is drawn on the host per call and cannot "
+                             "be replayed by a CUDA graph; pass it to render instead")
 
 
 class Cache:

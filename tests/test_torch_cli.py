@@ -344,7 +344,7 @@ def test_distributed_two_processes(tmp_path):
 
 @pytest.mark.parametrize("argv", [[], ["-r", "0"], ["--time-bins", "2"]])
 def test_mlt_with_render_flags(tmp_path, monkeypatch, argv):
-    """--integrator mlt renders the film once through mlt.render with the
+    """--integrator mlt renders the film once through mlt.render_jit with the
     JAX CLI's count (n_mutations = max(spp, 64), the other arguments at
     their defaults), whatever render route -r or --time-bins would pick
     for an Li integrator: the JAX CLI takes its film renderers before those
@@ -358,7 +358,7 @@ def test_mlt_with_render_flags(tmp_path, monkeypatch, argv):
         calls.append(kw)
         return torch.full((cam.height, cam.width, 3), 0.5)
 
-    monkeypatch.setattr(mlt, "render", fake)
+    monkeypatch.setattr(mlt, "render_jit", fake)
     p = write_scene(tmp_path)
     assert run(p, "-o", tmp_path / "o.exr", "-q", "--integrator", "mlt", *argv) == 0
     assert calls == [{"n_mutations": 64}]
@@ -366,18 +366,18 @@ def test_mlt_with_render_flags(tmp_path, monkeypatch, argv):
 
 
 def test_mlt_renders_like_the_library(tmp_path, monkeypatch):
-    """--integrator mlt on the area-lit 8x8 scene: the EXR equals
-    mlt.render of the loaded scene with the same config and the CLI's 64
-    mutations (both at 256 chains and 1,024 bootstrap paths, set through
-    the library's keywords)."""
+    """--integrator mlt on the area-lit 8x8 scene: the EXR (through
+    mlt.render_jit) equals mlt.render of the loaded scene with the same
+    config and the CLI's 64 mutations (both at 256 chains and 1,024
+    bootstrap paths, set through the library's keywords)."""
     from mitsuba_tpu_torch.integrators import mlt
 
     small = dict(n_chains=256, n_bootstrap=1024)
-    monkeypatch.setattr(mlt, "render", functools.partial(mlt.render, **small))
+    monkeypatch.setattr(mlt, "render_jit", functools.partial(mlt.render_jit, **small))
     p = write_scene(tmp_path)
     assert run(p, "-o", tmp_path / "o.exr", "-q", "--integrator", "mlt") == 0
     scene, cam, cfg, _ = xml.load_xml(p, device="cpu")
-    want = mlt.render(scene, cam, cfg, n_mutations=64).numpy()
+    want = mlt.render(scene, cam, cfg, n_mutations=64, **small).numpy()
     got = image.read_exr(tmp_path / "o.exr")
     assert got.shape == (8, 8, 3) and np.isfinite(got).all() and got.mean() > 0
     np.testing.assert_array_equal(got, want)
@@ -390,8 +390,9 @@ def test_mlt_env_lit_takes_pssmlt(tmp_path, monkeypatch):
     from mitsuba_tpu_torch.integrators import mlt, pssmlt
 
     calls = []
-    monkeypatch.setattr(mlt, "render", lambda *a, **kw: pytest.fail("mlt on an env-lit scene"))
-    monkeypatch.setattr(pssmlt, "render", lambda scene, cam, cfg, **kw: (
+    monkeypatch.setattr(mlt, "render_jit",
+                        lambda *a, **kw: pytest.fail("mlt on an env-lit scene"))
+    monkeypatch.setattr(pssmlt, "render_jit", lambda scene, cam, cfg, **kw: (
         calls.append(kw), torch.full((cam.height, cam.width, 3), 0.25))[1])
     p = write_scene(tmp_path, extra='<emitter type="constant"><rgb name="radiance" '
                                     'value="0.5, 0.5, 0.5"/></emitter>')
@@ -416,8 +417,8 @@ def test_unported_integrators_exit(tmp_path, name):
 @pytest.mark.parametrize("name,spp,steps", [("pssmlt", 16, 64), ("pssmlt", 100, 100),
                                             ("erpt", 16, 64), ("erpt", 100, 100)])
 def test_mcmc_integrators_parameters(tmp_path, monkeypatch, name, spp, steps):
-    """--integrator pssmlt|erpt calls the port's render with the JAX CLI's
-    counts (mitsuba_tpu/cli.py:239-272): n_mutations or chain_length =
+    """--integrator pssmlt|erpt calls the port's render_jit with the JAX
+    CLI's counts (mitsuba_tpu/cli.py:239-272): n_mutations or chain_length =
     max(spp, 64), the other arguments at their defaults; the image it
     returns is what the CLI writes. The renderer is patched: no render."""
     from mitsuba_tpu_torch.integrators import erpt, pssmlt
@@ -429,7 +430,7 @@ def test_mcmc_integrators_parameters(tmp_path, monkeypatch, name, spp, steps):
         calls.append((cfg, kw))
         return torch.full((cam.height, cam.width, 3), 0.25)
 
-    monkeypatch.setattr(mod, "render", fake)
+    monkeypatch.setattr(mod, "render_jit", fake)
     p = write_scene(tmp_path)
     assert run(p, "-o", tmp_path / "o.exr", "-q", "-s", spp, "--integrator", name) == 0
     (cfg, kw), = calls
