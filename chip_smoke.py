@@ -1070,8 +1070,7 @@ def phase_bvh_kernel(dev):
     say("bvh_bound", rays=n, **{f"{k}_bound_ms": v[0] for k, v in bounds.items()},
         **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
         **{f"{k}_{w}": work[k.replace("bvh_", "")].get(w, 0)
-           for k in bounds for w in ("visits", "box_tests", "tri_tests", "max_stack")},
-        grid=dict(bvk.LAST_GRID))
+           for k in bounds for w in ("visits", "box_tests", "tri_tests", "max_stack")})
     report = {}
     for k in bounds:
         report[k] = {"max_abs_err": max(errs[k], errs_r[k], errs_c[k]),

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.stats import span
+
 _M32 = 0xFFFFFFFF
 
 
@@ -76,6 +78,10 @@ class SampleStream:
         """Sample one dimension. `dim` may be an int tensor (a bounce
         counter): the QMC kinds need a Python-int dim and, as in the JAX
         package, fall back to hashing for a tensor one."""
+        with span("sampler"):
+            return self._draw(dim)
+
+    def _draw(self, dim):
         if self.kind == 0 or not isinstance(dim, int):
             return uniform(self.seed, self.pixel, self.sample, dim)
         from ..samplers import qmc
@@ -83,13 +89,18 @@ class SampleStream:
         return qmc.sample_dim(self.kind, self.seed, self.pixel, self.sample,
                               dim, self.spp)
 
-    def next_1d(self):
-        u = self.at_dim(self.dim)
+    def _next(self):
+        u = self._draw(self.dim)
         self.dim = self.dim + 1
         return u
 
+    def next_1d(self):
+        with span("sampler"):
+            return self._next()
+
     def next_2d(self):
-        return torch.stack([self.next_1d(), self.next_1d()], dim=-1)
+        with span("sampler"):
+            return torch.stack([self._next(), self._next()], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,10 @@ uniforms as arguments, by default drawn from a `torch.Generator` seeded
 with the same seed, where the JAX package draws them with `jax.random`
 threefry (boundary.py:299-300, :328). The port's splat pass therefore uses
 other edge samples for the same seed (ROADMAP C15).
+
+Spans (utils/stats.span): `grad` is render_grad's whole forward,
+`grad.edges` the NEE edge terms, `grad.splat` the splat pass; the BSDF and
+emitter calls of the replay walk and the edge terms are `shading`.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from ..models import bsdf as bsdflib
 from ..models import emitter as emitterlib
 from ..models import sensor as sensorlib
 from ..ops import trace
+from ..utils.stats import span
 from .common import RenderConfig
 from .path import DIMS_PER_BOUNCE, RAY_EPS, SENSOR_DIMS
 
@@ -142,10 +147,11 @@ def emitter_anchor(scene):
 def _emitted_radiance(scene, prim, d, valid):
     """Radiance emitted toward -d by triangle `prim` (front side only),
     the environment's for misses (JAX boundary.py:145-157)."""
-    em = scene.tri_emitter[prim]
-    le = scene.emitters.radiance[torch.clamp_min(em, 0)]
-    le = torch.where((valid & (em >= 0) & _front(scene, prim, d))[:, None], le, 0.0)
-    return torch.where(valid[:, None], le, emitterlib.env_radiance(scene, d))
+    with span("shading"):
+        em = scene.tri_emitter[prim]
+        le = scene.emitters.radiance[torch.clamp_min(em, 0)]
+        le = torch.where((valid & (em >= 0) & _front(scene, prim, d))[:, None], le, 0.0)
+        return torch.where(valid[:, None], le, emitterlib.env_radiance(scene, d))
 
 
 def _edge_geometry(sc, row, z0, w, dist):
@@ -179,6 +185,11 @@ def nee_boundary(scene, p, ns, sp, wi_local, families, u_edge, edge_w=None,
     uniform); u_la: optional (N, M, K, 3) uniforms that turn on the order-1
     radiance lookahead (emission + K-sample direct lighting on both sides
     of the edge, not emission only)."""
+    with span("grad.edges"):
+        return _nee_boundary(scene, p, ns, sp, wi_local, families, u_edge, edge_w, u_la)
+
+
+def _nee_boundary(scene, p, ns, sp, wi_local, families, u_edge, edge_w, u_la):
     sc = scene.detach()
     n, M, _ = u_edge.shape
     pf = torch.repeat_interleave(p.detach(), M, dim=0)      # (N*M,3)
@@ -221,8 +232,9 @@ def nee_boundary(scene, p, ns, sp, wi_local, families, u_edge, edge_w=None,
     # BSDF factor at p toward w (the receiver cosine included)
     wo_local = m.to_local(torch.repeat_interleave(ns.detach(), M, dim=0), w)
     sp_rep = bsdflib.map_tensors(lambda a: torch.repeat_interleave(a.detach(), M, dim=0), sp)
-    f_val, _ = bsdflib.eval_pdf(sp_rep, torch.repeat_interleave(wi_local.detach(), M, dim=0),
-                                wo_local, families)
+    with span("shading"):
+        f_val, _ = bsdflib.eval_pdf(sp_rep, torch.repeat_interleave(wi_local.detach(), M, dim=0),
+                                    wo_local, families)
 
     live = sil & ~occ_seg
     scale = torch.where(live, rate, 0.0) * inv_pdf
@@ -244,6 +256,12 @@ def primary_boundary_image(scene, cam, n_samples, seed, spp_lookahead=4,
     lookahead uniforms; each not given is drawn from a torch.Generator
     seeded with `seed` (the JAX package draws both with jax.random from
     PRNGKey(seed))."""
+    with span("grad.splat"):
+        return _primary_boundary_image(scene, cam, n_samples, seed, spp_lookahead, edge_w, u,
+                                       u_la)
+
+
+def _primary_boundary_image(scene, cam, n_samples, seed, spp_lookahead, edge_w, u, u_la):
     sc = scene.detach()
     dev = sc.device
     if u is None or u_la is None:
@@ -299,11 +317,12 @@ def _radiance_direct(sc, o, d, its, u3s):
 
 def _nee_once(sc, si, its, u3, families):
     """One NEE sample of direct lighting at the hit (JAX boundary.py:380-390)."""
-    ds = emitterlib.sample_direct(sc, si["p"], u3)
     wi_l = m.to_local(si["ns"], si["wi_world"])
-    wo_l = m.to_local(si["ns"], ds.d)
-    sp = bsdflib.gather_shade_point(sc, si["mat"], si["uv"], u_blend=u3[:, 2], aux=si)
-    f_val, _ = bsdflib.eval_pdf(sp, wi_l, wo_l, families)
+    with span("shading"):
+        ds = emitterlib.sample_direct(sc, si["p"], u3)
+        wo_l = m.to_local(si["ns"], ds.d)
+        sp = bsdflib.gather_shade_point(sc, si["mat"], si["uv"], u_blend=u3[:, 2], aux=si)
+        f_val, _ = bsdflib.eval_pdf(sp, wi_l, wo_l, families)
     blocked = trace.shadow_blocked(sc, si["p"], ds.d, ds.dist)
     nee = f_val * ds.radiance * m.safe_div(torch.ones_like(ds.pdf), ds.pdf)[:, None]
     return torch.where((its.valid & (ds.pdf > 0) & ~blocked)[:, None], nee, 0.0)
@@ -358,16 +377,18 @@ def li_grad(scene, cam, o, d, stream, cfg: RenderConfig,
         active = active & its.valid
         ns = si["ns"]
         wi_local = m.to_local(ns, si["wi_world"])
-        sp = bsdflib.gather_shade_point(sc, si["mat"], si["uv"],
-                                        u_blend=bounce_u(t, 7), aux=si)
+        u_blend = bounce_u(t, 7)
+        with span("shading"):
+            sp = bsdflib.gather_shade_point(sc, si["mat"], si["uv"], u_blend=u_blend, aux=si)
         if t < cfg.max_depth - 1:
             bterm = nee_boundary(scene, si["p"], ns, sp, wi_local, families,
                                  edge_u(0, t), edge_w=edge_w, u_la=la_u(t))
             L = L + torch.where(active[:, None], beta * bterm, 0.0)
         # continue exactly as path.li's BSDF sampling does
+        u_lobe = bounce_u(t, 3)
         u2 = torch.stack([bounce_u(t, 4), bounce_u(t, 5)], -1)
-        wo, weight, pdf, is_delta = bsdflib.sample(sp, wi_local, bounce_u(t, 3), u2,
-                                                   families)
+        with span("shading"):
+            wo, weight, pdf, is_delta = bsdflib.sample(sp, wi_local, u_lobe, u2, families)
         d_new = m.to_world(ns, wo)
         beta_new = beta * weight
         alive = (active & (t < cfg.max_depth - 1) & (pdf > 0.0)
@@ -400,11 +421,12 @@ def render_grad(scene, cam, cfg: RenderConfig,
             "boundary.render_grad has no medium transport: differentiate "
             "common.render(scene, cam, volpath.li, cfg) instead")
 
-    img = commonmod.render(
-        scene, cam, lambda s, c, o, d, st, cf: li_grad(s, c, o, d, st, cf, bc), cfg)
-    if bc.primary and bc.n_primary > 0:
-        edge_w = (edge_importance(scene, cam.to_world[:3, 3], floor=bc.imp_floor)
-                  if bc.imp_primary else None)
-        img = img + primary_boundary_image(scene, cam, bc.n_primary, cfg.seed ^ 0x5EED,
-                                           edge_w=edge_w)
-    return img
+    with span("grad"):
+        img = commonmod.render(
+            scene, cam, lambda s, c, o, d, st, cf: li_grad(s, c, o, d, st, cf, bc), cfg)
+        if bc.primary and bc.n_primary > 0:
+            edge_w = (edge_importance(scene, cam.to_world[:3, 3], floor=bc.imp_floor)
+                      if bc.imp_primary else None)
+            img = img + primary_boundary_image(scene, cam, bc.n_primary, cfg.seed ^ 0x5EED,
+                                               edge_w=edge_w)
+        return img

@@ -18,6 +18,7 @@ import torch
 from ..core.rng import SampleStream
 from ..film import film as filmlib
 from ..utils import graphs
+from ..utils.stats import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,9 +110,10 @@ def chunk_sum(scene, cam, li_fn: LiFn, cfg: RenderConfig, layout, base: torch.Te
     and (H, W) weight splats (film/film.py). The work render_jit captures;
     radiance_sum and film_sum add the chunks up in the same order."""
     px, py, radiance = chunk_radiance(scene, cam, li_fn, cfg, layout, base)
-    if cfg.filter == filmlib.FILTER_BOX:
-        return (torch.sum(radiance.reshape(-1, chunk, 3), dim=1),)
-    return filmlib.splat(cam.width, cam.height, px, py, radiance, cfg.filter)
+    with span("film"):
+        if cfg.filter == filmlib.FILTER_BOX:
+            return (torch.sum(radiance.reshape(-1, chunk, 3), dim=1),)
+        return filmlib.splat(cam.width, cam.height, px, py, radiance, cfg.filter)
 
 
 def _base(sample_base: int, device) -> torch.Tensor:
@@ -161,9 +163,10 @@ def film_sum(scene, cam, li_fn: LiFn, cfg: RenderConfig, pixel_ids, sample_base:
 
 
 def _finish(acc, cfg: RenderConfig, rows: int, width: int, n_samples: int) -> torch.Tensor:
-    if cfg.filter == filmlib.FILTER_BOX:
-        return acc[0].reshape(rows, width, 3) / max(float(n_samples), 1e-8)
-    return filmlib.develop(*acc)
+    with span("film"):
+        if cfg.filter == filmlib.FILTER_BOX:
+            return acc[0].reshape(rows, width, 3) / max(float(n_samples), 1e-8)
+        return filmlib.develop(*acc)
 
 
 def render(scene, cam, li_fn: LiFn, cfg: RenderConfig, sample_offset: int = 0,
@@ -221,13 +224,18 @@ class ChunkGraph:
     def sums(self, scene, cam, sample_base: int, n_samples: int) -> list:
         """The accumulators after the chunks of the samples [sample_base,
         sample_base + n_samples): radiance_sum's or film_sum's values, in
-        the entry's own tensors (the next call overwrites them)."""
-        self.statics.load(scene, cam)
-        for a in self.acc:
-            a.zero_()
+        the entry's own tensors (the next call overwrites them). A chunk
+        whose piece has no graph yet runs eagerly and is captured (the
+        span `render_jit.capture`); every other chunk replays."""
+        with span("render_jit.load"):
+            self.statics.load(scene, cam)
+            for a in self.acc:
+                a.zero_()
         for ci in range(n_samples // self.chunk):
-            self.base.fill_(sample_base + ci * self.chunk)
-            self.piece.run()
+            with span("render_jit.replay" if self.piece.graph is not None
+                      else "render_jit.capture"):
+                self.base.fill_(sample_base + ci * self.chunk)
+                self.piece.run()
         return self.acc
 
 
@@ -250,15 +258,23 @@ def render_jit(scene, cam, li_fn: LiFn, cfg: RenderConfig,
     failed capture raises; a leaf that requires grad raises
     NotImplementedError (gradients go through `render` or
     `boundary.render_grad`)."""
-    graphs.refuse_grad("common.render_jit", scene, cam)
     if scene.device.type != "cuda":
+        graphs.refuse_grad("common.render_jit", scene, cam)
         return render(scene, cam, li_fn, cfg, sample_offset)
-    key = (li_fn, cfg, graphs.static_key(scene, cam))
-    with _CHUNK_GRAPHS.lock, torch.cuda.device(scene.device):
-        entry = _CHUNK_GRAPHS.get(key, lambda: ChunkGraph(scene, cam, li_fn, cfg))
+
+    def make():
+        with span("render_jit.capture"):
+            return ChunkGraph(scene, cam, li_fn, cfg)
+
+    with span("render_jit"), _CHUNK_GRAPHS.lock, torch.cuda.device(scene.device):
+        with span("render_jit.key"):
+            graphs.refuse_grad("common.render_jit", scene, cam)
+            key = (li_fn, cfg, graphs.static_key(scene, cam))
+            entry = _CHUNK_GRAPHS.get(key, make)
         n_samples = cfg.spp // entry.chunk * entry.chunk
         acc = entry.sums(scene, cam, int(sample_offset), n_samples)
-        return _finish(acc, cfg, cam.height, cam.width, n_samples)
+        with span("render_jit.finish"):
+            return _finish(acc, cfg, cam.height, cam.width, n_samples)
 
 
 def power_heuristic(pdf_a: torch.Tensor, pdf_b: torch.Tensor) -> torch.Tensor:

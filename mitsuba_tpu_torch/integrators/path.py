@@ -10,6 +10,9 @@ useful rays of the rays/s benchmark.
 Sampler dims: 4 are consumed by the sensor (common.py); each bounce
 consumes a fixed window of 8 dims: NEE 0-2, the BSDF lobe 3, its direction
 4-5, Russian roulette 6 and the blend adapter's choice 7.
+
+The BSDF and emitter calls, and the emitted radiance's gather at the hit,
+are the span `shading` (utils/stats.span).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from ..models import emitter as emitterlib
 from ..models import sensor as sensorlib
 from ..ops import trace
 from ..scene import ir as _ir
+from ..utils.stats import span
 from .common import RenderConfig, mis_weight
 
 SENSOR_DIMS = 4
@@ -65,11 +69,11 @@ def _li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         wi_local = m.to_local(ns, si["wi_world"])
 
         # --- escaped rays: environment emission ---------------------------
-        env_le = emitterlib.env_radiance(scene, d)
+        with span("shading"):
+            env_le = emitterlib.env_radiance(scene, d)
+            pdf_env = emitterlib.pdf_direct_env(scene, d) if scene.has_env else None
         if scene.has_env:
-            w_env = torch.where(
-                prev_delta, 1.0,
-                mis_weight(cfg.mis_mode, prev_pdf, emitterlib.pdf_direct_env(scene, d)))
+            w_env = torch.where(prev_delta, 1.0, mis_weight(cfg.mis_mode, prev_pdf, pdf_env))
             if cfg.hide_emitters and t == 0:
                 w_env = torch.zeros_like(w_env)
             L = L + torch.where((active & ~its.valid)[:, None],
@@ -79,10 +83,11 @@ def _li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         # --- emitted radiance at the hit ----------------------------------
         em_id = si["emitter"]
         hit_emitter = em_id >= 0
-        le = scene.emitters.radiance[torch.clamp_min(em_id, 0)]
         cos_l = m.dot(si["wi_world"], ng)   # emitters are one-sided (front = +ng)
-        le = torch.where((hit_emitter & (cos_l > 0.0))[:, None], le, 0.0)
-        pdf_em = emitterlib.pdf_direct_area(scene, o, d, its.t, its.prim, cos_l)
+        with span("shading"):
+            le = scene.emitters.radiance[torch.clamp_min(em_id, 0)]
+            le = torch.where((hit_emitter & (cos_l > 0.0))[:, None], le, 0.0)
+            pdf_em = emitterlib.pdf_direct_area(scene, o, d, its.t, its.prim, cos_l)
         w_bsdf = torch.where(prev_delta, 1.0, mis_weight(cfg.mis_mode, prev_pdf, pdf_em))
         if cfg.hide_emitters and t == 0:
             w_bsdf = torch.zeros_like(w_bsdf)
@@ -91,14 +96,16 @@ def _li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         # vertex t+1 just handled; continuing needs t + 2 <= max_depth edges
         can_continue = t < (cfg.max_depth - 1)
 
-        sp = bsdflib.gather_shade_point(scene, si["mat"], si["uv"],
-                                        u_blend=bounce_u(t, 7), aux=si)
+        u_blend = bounce_u(t, 7)
+        with span("shading"):
+            sp = bsdflib.gather_shade_point(scene, si["mat"], si["uv"], u_blend=u_blend, aux=si)
 
         # --- next event estimation ----------------------------------------
         u_nee = torch.stack([bounce_u(t, 0), bounce_u(t, 1), bounce_u(t, 2)], -1)
-        ds = emitterlib.sample_direct(scene, p, u_nee)
-        wo_local = m.to_local(ns, ds.d)
-        f_nee, pdf_bsdf_nee = bsdflib.eval_pdf(sp, wi_local, wo_local, families)
+        with span("shading"):
+            ds = emitterlib.sample_direct(scene, p, u_nee)
+            wo_local = m.to_local(ns, ds.d)
+            f_nee, pdf_bsdf_nee = bsdflib.eval_pdf(sp, wi_local, wo_local, families)
         nee_possible = active & can_continue & (ds.pdf > 0.0) & (
             torch.amax(f_nee, dim=-1) > 0.0)
         if cfg.strict_normals:
@@ -115,7 +122,8 @@ def _li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         # --- BSDF sampling --------------------------------------------------
         u_lobe = bounce_u(t, 3)
         u2 = torch.stack([bounce_u(t, 4), bounce_u(t, 5)], -1)
-        wo, weight, pdf, is_delta = bsdflib.sample(sp, wi_local, u_lobe, u2, families)
+        with span("shading"):
+            wo, weight, pdf, is_delta = bsdflib.sample(sp, wi_local, u_lobe, u2, families)
         d_new = m.to_world(ns, wo)
         # relative IOR bookkeeping for RR
         eta_r = torch.where(

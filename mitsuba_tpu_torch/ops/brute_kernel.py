@@ -33,13 +33,15 @@ bit.
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises, with or without autograd. Neither route has a backward: the trace
 entry points hand both of them detached inputs (`intersect.search_inputs`).
-KERNEL_LAUNCHES and PLAIN_CALLS count each route per entry point;
-LAST_CONFIG holds each entry's last launch configuration (lanes per ray,
-block size, triangles per tile, shared memory bytes).
+KERNEL_LAUNCHES and PLAIN_CALLS count each route per entry point, and
+KERNEL_RAYS the rays handed to an entry on either route (the ray tensors'
+first dimension); LAST_CONFIG holds each entry's last launch configuration
+(lanes per ray, block size, triangles per tile, shared memory bytes).
 
 Inside a CUDA graph (utils/graphs.py): a launch recorded while the stream
-captures counts in CAPTURED_LAUNCHES, and each replay of the graph adds
-the launches it holds to KERNEL_LAUNCHES. The launcher's plan (a
+captures counts in CAPTURED_LAUNCHES and its rays in CAPTURED_RAYS, and
+each replay of the graph adds the launches and rays it holds to
+KERNEL_LAUNCHES and KERNEL_RAYS. The launcher's plan (a
 `cudaFuncSetAttribute` and occupancy queries) is made at the first launch
 of a scene size and kept, so the eager run before a capture makes it and
 the capture itself records the kernel launch alone.
@@ -56,13 +58,15 @@ from . import intersect as I
 KERNEL_LAUNCHES = {"closest": 0, "any_hit": 0}
 CAPTURED_LAUNCHES = {"closest": 0, "any_hit": 0}
 PLAIN_CALLS = {"closest": 0, "any_hit": 0}
+KERNEL_RAYS = {"closest": 0, "any_hit": 0}
+CAPTURED_RAYS = {"closest": 0, "any_hit": 0}
 LAST_CONFIG = {"closest": None, "any_hit": None}
 # lanes per ray the kernel takes; None lets its launcher choose
 LANES = (1, 2, 4, 8)
 
 
 def reset_counts():
-    for counts in (KERNEL_LAUNCHES, CAPTURED_LAUNCHES, PLAIN_CALLS):
+    for counts in (KERNEL_LAUNCHES, CAPTURED_LAUNCHES, PLAIN_CALLS, KERNEL_RAYS, CAPTURED_RAYS):
         for k in counts:
             counts[k] = 0
 
@@ -149,17 +153,17 @@ def _lib():
     return lib
 
 
-def _launch(entry, *args, dev, lanes):
-    """Launch one entry on the current stream; raise on a refused launch
-    (shared memory, block size) or a bad lane count."""
+def _launch(entry, *args, dev, lanes, rays):
+    """Launch one entry on the current stream for `rays` rays; raise on a
+    refused launch (shared memory, block size) or a bad lane count."""
     if lanes is not None and lanes not in LANES:
         raise ValueError(f"brute kernel: lanes must be one of {LANES}, got {lanes}")
     config = (ctypes.c_int * 4)()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        counts = (CAPTURED_LAUNCHES if torch.cuda.is_current_stream_capturing()
-                  else KERNEL_LAUNCHES)
-        counts[entry] += 1
+        capturing = torch.cuda.is_current_stream_capturing()
+        (CAPTURED_LAUNCHES if capturing else KERNEL_LAUNCHES)[entry] += 1
+        (CAPTURED_RAYS if capturing else KERNEL_RAYS)[entry] += rays
         rc = getattr(_lib(), "brute_" + entry)(*args, lanes or 0, config, stream)
     if rc != 0:
         raise RuntimeError(f"brute kernel {entry}: CUDA error {rc} at launch")
@@ -173,6 +177,7 @@ def closest_key(tris, o, d, tmax, lanes=None):
     its launcher chooses."""
     if o.device.type == "cpu":
         PLAIN_CALLS["closest"] += 1
+        KERNEL_RAYS["closest"] += o.shape[0]
         return closest_key_plain(tris, o, d, tmax)
     _check(tris, o, d, tmax)
     n = o.shape[0]
@@ -181,7 +186,8 @@ def closest_key(tris, o, d, tmax, lanes=None):
     if n == 0:
         return key, base
     _launch("closest", o.data_ptr(), d.data_ptr(), tmax.data_ptr(), tris.data_ptr(),
-            n, tris.shape[1], key.data_ptr(), base.data_ptr(), dev=o.device, lanes=lanes)
+            n, tris.shape[1], key.data_ptr(), base.data_ptr(), dev=o.device, lanes=lanes,
+            rays=n)
     return key, base
 
 
@@ -189,6 +195,7 @@ def any_hit(tris, opaque, o, d, limit, lanes=None):
     """True where an opaque triangle is hit with SHADOW_EPS < t < limit."""
     if o.device.type == "cpu":
         PLAIN_CALLS["any_hit"] += 1
+        KERNEL_RAYS["any_hit"] += o.shape[0]
         return any_hit_plain(tris, opaque, o, d, limit)
     _check(tris, o, d, limit, opaque)
     n = o.shape[0]
@@ -197,5 +204,5 @@ def any_hit(tris, opaque, o, d, limit, lanes=None):
         return blocked
     _launch("any_hit", o.data_ptr(), d.data_ptr(), limit.data_ptr(), tris.data_ptr(),
             opaque.data_ptr(), n, tris.shape[1], blocked.data_ptr(), dev=o.device,
-            lanes=lanes)
+            lanes=lanes, rays=n)
     return blocked

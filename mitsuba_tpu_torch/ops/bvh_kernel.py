@@ -34,11 +34,14 @@ launches the kernel or raises, with or without autograd. Neither route has
 a backward: the entry points below hand both of them detached rays
 (`intersect.search_inputs`; the twin writes into tensors in place), and the
 tables are built detached (`scene/bvh.attach`). KERNEL_LAUNCHES and
-PLAIN_CALLS count each route per entry point; LAST_GRID holds each entry's last grid (blocks).
+PLAIN_CALLS count each route per entry point, and KERNEL_RAYS the rays
+handed to an entry on either route (closest and shadow rays together for
+the fused entry).
 
 Inside a CUDA graph (utils/graphs.py): a launch recorded while the stream
-captures counts in CAPTURED_LAUNCHES, and each replay adds the graph's
-launches to KERNEL_LAUNCHES. The walk's resident-block count (a carveout
+captures counts in CAPTURED_LAUNCHES and its rays in CAPTURED_RAYS, and
+each replay adds the graph's launches and rays to KERNEL_LAUNCHES and
+KERNEL_RAYS. The walk's resident-block count (a carveout
 attribute and an occupancy query) is measured at the first launch on a
 device and kept, so the eager run before a capture measures it. Each
 launch's ray counter is a `torch.zeros` of its own: in a graph it is a
@@ -59,13 +62,14 @@ from . import intersect as I
 KERNEL_LAUNCHES = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
 CAPTURED_LAUNCHES = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
 PLAIN_CALLS = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
-LAST_GRID = {"closest": None, "any_hit": None, "closest_and_any": None}
+KERNEL_RAYS = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
+CAPTURED_RAYS = {"closest": 0, "any_hit": 0, "closest_and_any": 0}
 # stack entries of the kernel's walk (csrc/bvh_intersect.cu STACK)
 KERNEL_STACK = 32
 
 
 def reset_counts():
-    for counts in (KERNEL_LAUNCHES, CAPTURED_LAUNCHES, PLAIN_CALLS):
+    for counts in (KERNEL_LAUNCHES, CAPTURED_LAUNCHES, PLAIN_CALLS, KERNEL_RAYS, CAPTURED_RAYS):
         for k in counts:
             counts[k] = 0
 
@@ -127,17 +131,16 @@ def _tables(bvh, dev):
             counter.data_ptr()), counter
 
 
-def _launch(entry, *args, dev):
+def _launch(entry, *args, dev, rays):
     grid = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        counts = (CAPTURED_LAUNCHES if torch.cuda.is_current_stream_capturing()
-                  else KERNEL_LAUNCHES)
-        counts[entry] += 1
+        capturing = torch.cuda.is_current_stream_capturing()
+        (CAPTURED_LAUNCHES if capturing else KERNEL_LAUNCHES)[entry] += 1
+        (CAPTURED_RAYS if capturing else KERNEL_RAYS)[entry] += rays
         fn = getattr(_lib(), "bvh_" + entry)
         rc = fn(*args, ctypes.byref(grid), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bvh kernel {entry}: CUDA error {rc} at launch")
-    LAST_GRID[entry] = grid.value
 
 
 def _empty(n, dtype, dev):
@@ -148,6 +151,7 @@ def closest_key(bvh, o, d, tmax):
     """Packed closest-hit keys of rays (o, d) with t < tmax."""
     if o.device.type == "cpu":
         PLAIN_CALLS["closest"] += 1
+        KERNEL_RAYS["closest"] += o.shape[0]
         key, base, _ = BT.walk(bvh, o, d, tmax, o.shape[0])
         return key, base
     _check(bvh, [("closest", o, d, tmax)])
@@ -155,7 +159,7 @@ def closest_key(bvh, o, d, tmax):
     key, base = _empty(n, torch.int32, o.device), _empty(n, torch.int32, o.device)
     tables, _counter = _tables(bvh, o.device)
     _launch("closest", o.data_ptr(), d.data_ptr(), tmax.data_ptr(), n, *tables,
-            key.data_ptr(), base.data_ptr(), dev=o.device)
+            key.data_ptr(), base.data_ptr(), dev=o.device, rays=n)
     return key, base
 
 
@@ -163,13 +167,14 @@ def blocked(bvh, o, d, limit):
     """True where an opaque triangle is hit with SHADOW_EPS < t < limit."""
     if o.device.type == "cpu":
         PLAIN_CALLS["any_hit"] += 1
+        KERNEL_RAYS["any_hit"] += o.shape[0]
         return BT.walk(bvh, o, d, limit, 0)[2]
     _check(bvh, [("shadow", o, d, limit)])
     n = o.shape[0]
     out = _empty(n, torch.bool, o.device)
     tables, _counter = _tables(bvh, o.device)
     _launch("any_hit", o.data_ptr(), d.data_ptr(), limit.data_ptr(), n, *tables,
-            out.data_ptr(), dev=o.device)
+            out.data_ptr(), dev=o.device, rays=n)
     return out
 
 
@@ -179,6 +184,7 @@ def closest_and_any_key(bvh, o_c, d_c, tmax_c, o_s, d_s, limit_s):
     n_c, n_s = o_c.shape[0], o_s.shape[0]
     if o_c.device.type == "cpu":
         PLAIN_CALLS["closest_and_any"] += 1
+        KERNEL_RAYS["closest_and_any"] += n_c + n_s
         key, base, blk = BT.walk(bvh, torch.cat([o_c, o_s]), torch.cat([d_c, d_s]),
                                  torch.cat([tmax_c, limit_s]), n_c)
         return key[:n_c], base[:n_c], blk[n_c:]
@@ -189,7 +195,7 @@ def closest_and_any_key(bvh, o_c, d_c, tmax_c, o_s, d_s, limit_s):
     tables, _counter = _tables(bvh, dev)
     _launch("closest_and_any", o_c.data_ptr(), d_c.data_ptr(), tmax_c.data_ptr(), n_c,
             o_s.data_ptr(), d_s.data_ptr(), limit_s.data_ptr(), n_s, *tables,
-            key.data_ptr(), base.data_ptr(), blk.data_ptr(), dev=dev)
+            key.data_ptr(), base.data_ptr(), blk.data_ptr(), dev=dev, rays=n_c + n_s)
     return key, base, blk
 
 

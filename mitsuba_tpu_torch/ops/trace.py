@@ -21,9 +21,13 @@ JAX package does; volpath and the boundary terms keep the exact query.
 Every query detaches its inputs (`intersect.search_inputs`), as the JAX
 package stops the gradient of its searches: the results carry no autograd
 history, and gradients reach the hit through `surface_interaction`.
+
+Each entry point, `surface_interaction` included, is the span `trace`
+(utils/stats.span): the queries and the hit's vertex and uv gathers.
 """
 from __future__ import annotations
 
+from ..utils.stats import span
 from . import bvh_kernel
 from . import intersect as _isect
 
@@ -47,12 +51,22 @@ def fuses(scene) -> bool:
 
 
 def closest_hit(scene, o, d, tmax=None) -> _isect.Intersection:
+    with span("trace"):
+        return _closest_hit(scene, o, d, tmax)
+
+
+def _closest_hit(scene, o, d, tmax):
     if _walks_bvh(scene):
         return bvh_kernel.closest_hit(scene, scene.bvh, o, d, tmax)
     return _isect.intersect_brute(scene, o, d, tmax)
 
 
 def any_hit(scene, o, d, tmax):
+    with span("trace"):
+        return _any_hit(scene, o, d, tmax)
+
+
+def _any_hit(scene, o, d, tmax):
     if _walks_bvh(scene):
         return bvh_kernel.any_hit(scene, scene.bvh, o, d, tmax)
     return _isect.occluded_brute(scene, o, d, tmax)
@@ -65,23 +79,34 @@ def _marches(scene, use_occupancy: bool) -> bool:
 def shadow_blocked(scene, o, d, tmax, use_occupancy: bool = False):
     """Shadow query: the occupancy map's march where asked for and present
     (approximate), else the exact any-hit."""
+    with span("trace"):
+        return _shadow_blocked(scene, o, d, tmax, use_occupancy)
+
+
+def _shadow_blocked(scene, o, d, tmax, use_occupancy):
     if _marches(scene, use_occupancy):
         from . import occupancy
 
         return occupancy.occluded(scene.occupancy, *_isect.search_inputs(o, d, tmax))
-    return any_hit(scene, o, d, tmax)
+    return _any_hit(scene, o, d, tmax)
 
 
 def closest_and_any(scene, o_c, d_c, tmax_c, o_s, d_s, tmax_s, use_occupancy: bool = False):
     """Closest hit (o_c, d_c) plus shadow any-hit (o_s, d_s): one launch on
     the card's BVH path, unless the shadow rays march the occupancy map;
     the two separate queries everywhere else."""
-    if fuses(scene) and not _marches(scene, use_occupancy):
-        return bvh_kernel.closest_and_any(scene, scene.bvh, o_c, d_c, tmax_c,
-                                          o_s, d_s, tmax_s)
-    return (closest_hit(scene, o_c, d_c, tmax_c),
-            shadow_blocked(scene, o_s, d_s, tmax_s, use_occupancy))
+    with span("trace"):
+        if fuses(scene) and not _marches(scene, use_occupancy):
+            return bvh_kernel.closest_and_any(scene, scene.bvh, o_c, d_c, tmax_c,
+                                              o_s, d_s, tmax_s)
+        return (_closest_hit(scene, o_c, d_c, tmax_c),
+                _shadow_blocked(scene, o_s, d_s, tmax_s, use_occupancy))
 
 
-surface_interaction = _isect.surface_interaction
+def surface_interaction(scene, o, d, its, dd_dx=None, dd_dy=None):
+    """intersect.surface_interaction: the hit's shading data."""
+    with span("trace"):
+        return _isect.surface_interaction(scene, o, d, its, dd_dx=dd_dx, dd_dy=dd_dy)
+
+
 Intersection = _isect.Intersection

@@ -17,9 +17,10 @@ plain-Python fields and every tensor's shape, dtype and device.
 
 A capture or replay that fails raises; nothing here falls back to the
 eager code. The kernel wrappers count a launch recorded during a capture
-in `CAPTURED_LAUNCHES`, not in `KERNEL_LAUNCHES`; a `Graph` keeps the
-launches it holds and adds them to `KERNEL_LAUNCHES` on every replay, so a
-path's launch count is the same eager or replayed.
+in `CAPTURED_LAUNCHES` and its rays in `CAPTURED_RAYS`, not in
+`KERNEL_LAUNCHES` and `KERNEL_RAYS`; a `Graph` keeps the launches and rays
+it holds and adds them to those on every replay, so a path's launch and
+ray counts are the same eager or replayed.
 
 Work that draws from a `torch.Generator` (the Metropolis chains' uniforms)
 captures with that generator registered (`capture(..., generators=)`):
@@ -141,22 +142,30 @@ def _kernel_modules():
 
 
 def _captured():
-    return [dict(mod.CAPTURED_LAUNCHES) for mod in _kernel_modules()]
+    return [(dict(mod.CAPTURED_LAUNCHES), dict(mod.CAPTURED_RAYS))
+            for mod in _kernel_modules()]
+
+
+def _add(counters, held):
+    """Add each kernel module's held counts to its counter of that name."""
+    for mod, counts in zip(_kernel_modules(), held):
+        for entry, n in counts.items():
+            getattr(mod, counters)[entry] += n
 
 
 class Graph:
-    """A captured graph and the kernel launches it holds (per kernel module
-    and entry point)."""
+    """A captured graph and the kernel launches and rays it holds (per
+    kernel module and entry point)."""
 
-    def __init__(self, graph, launches):
+    def __init__(self, graph, launches, rays=()):
         self.graph = graph
         self.launches = launches
+        self.rays = rays
 
     def replay(self):
         self.graph.replay()
-        for mod, held in zip(_kernel_modules(), self.launches):
-            for entry, n in held.items():
-                mod.KERNEL_LAUNCHES[entry] += n
+        _add("KERNEL_LAUNCHES", self.launches)
+        _add("KERNEL_RAYS", self.rays)
         STATS["replays"] += 1
 
 
@@ -209,10 +218,12 @@ def capture(fn, generators=()) -> Graph:
         # a failed capture leaves the capture's side stream current
         torch.cuda.set_stream(stream)
         raise RuntimeError(f"CUDA graph capture failed: {e}") from e
-    held = [{k: after[k] - was[k] for k in after if after[k] != was[k]}
+    # per kernel module: (the launches, the rays) recorded in the capture
+    held = [[{k: a[k] - w[k] for k in a if a[k] != w[k]} for w, a in zip(was, after)]
             for was, after in zip(before, _captured())]
+    launches, rays = zip(*held)
     STATS["captures"] += 1
-    return Graph(graph, held)
+    return Graph(graph, launches, rays)
 
 
 class Piece:

@@ -14,14 +14,36 @@ host-side: render paths hand their reduced totals back as scalars,
 renders the same grouped report. Counters can also carry
 a base for ratio statistics (percentage-of-base, statistics.h EPercentage
 analog).
+
+`span(name)` marks a layer of the renderer (the compiled render's host
+work, the sampler, trace, shading, film, the gradient forward) for
+torch.profiler: while a profiler records, it is a `record_function`
+named "mitsuba." + name, in the same trace as the device's kernels and on
+their clock; otherwise it is one shared no-op context that reads no
+clock. A span's parent is the span around it on the same host thread. It
+opens and closes in Python only, so a replayed CUDA graph opens none.
 """
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, Optional
+
+import torch
+import torch.autograd.profiler as _profiler
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler range "mitsuba.<name>" while torch.profiler records,
+    else a shared no-op context."""
+    if _profiler._is_profiler_enabled:
+        return torch.profiler.record_function("mitsuba." + name)
+    return _NO_SPAN
 
 
 @dataclass

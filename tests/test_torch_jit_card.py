@@ -135,6 +135,70 @@ def test_launches_counted_per_replay(cuda):
     assert _counts() == eager and eager["brute_closest"] > 0
 
 
+def _rays():
+    return {**{f"brute_{k}": v for k, v in brute_kernel.KERNEL_RAYS.items()},
+            **{f"bvh_{k}": v for k, v in bvh_kernel.KERNEL_RAYS.items()}}
+
+
+@pytest.mark.parametrize("case", ["cornell", "mesh"])
+def test_rays_counted_per_replay(cuda, case):
+    """The rays handed to the trace kernels through a warm graph (every
+    chunk a replay) equal the eager render's: B1's on the box, B2's on a
+    4,516-triangle sphere."""
+    if case == "cornell":
+        scene, cam = builtin.cornell_box(64, 64, device=cuda)
+        cfg = common.RenderConfig(spp=8, spp_chunk=2, max_depth=4)
+    else:
+        scene, cam = builtin.displaced_sphere(48, 48, 32, 32, device=cuda)
+        cfg = common.RenderConfig(spp=8, spp_chunk=4, max_depth=4, rr_depth=3)
+    common.render_jit(scene, cam, path.li, cfg)
+    _reset()
+    common.render(scene, cam, path.li, cfg)
+    eager = _rays()
+    _reset()
+    common.render_jit(scene, cam, path.li, cfg)
+    assert _rays() == eager
+    samples = cam.width * cam.height * cfg.spp
+    key = "brute" if case == "cornell" else "bvh"
+    assert eager[f"{key}_closest"] == eager[f"{key}_any_hit"] == cfg.max_depth * samples
+
+
+def test_capture_while_profiling(cuda, tmp_path):
+    """A capture made while torch.profiler records succeeds and replays
+    the eager image; the compiled render's spans nest inside render_jit."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    scene, cam = builtin.cornell_box(64, 64, device=cuda)
+    cfg = common.RenderConfig(spp=4, spp_chunk=2, max_depth=3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        first = common.render_jit(scene, cam, path.li, cfg)
+        second = common.render_jit(scene, cam, path.li, cfg, sample_offset=4)
+        torch.cuda.synchronize()
+    assert graphs.STATS == {"captures": 1, "replays": 3}
+    torch.testing.assert_close(first, common.render(scene, cam, path.li, cfg), atol=0, rtol=0)
+    torch.testing.assert_close(second, common.render(scene, cam, path.li, cfg,
+                                                     sample_offset=4), atol=0, rtol=0)
+    out = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(out))
+    marks = [e for e in json.loads(out.read_text())["traceEvents"]
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e["name"].startswith("mitsuba.render_jit")]
+    calls = [e for e in marks if e["name"] == "mitsuba.render_jit"]
+    assert len(calls) == 2
+    names = [sorted(e["name"] for e in marks if e is not c and c["ts"] <= e["ts"]
+                    and e["ts"] + e["dur"] <= c["ts"] + c["dur"]) for c in calls]
+    # the first call: its key (with the graph's construction), the eager
+    # and captured first chunk, a replay; the second: replays alone
+    assert names[0] == ["mitsuba.render_jit.capture", "mitsuba.render_jit.capture",
+                        "mitsuba.render_jit.finish", "mitsuba.render_jit.key",
+                        "mitsuba.render_jit.load", "mitsuba.render_jit.replay"]
+    assert names[1] == ["mitsuba.render_jit.finish", "mitsuba.render_jit.key",
+                        "mitsuba.render_jit.load", "mitsuba.render_jit.replay",
+                        "mitsuba.render_jit.replay"]
+
+
 @pytest.mark.parametrize("case", ["cornell", "mesh_fused_compact"])
 def test_wavefront_render_jit(cuda, case):
     """The wavefront through its step graphs equals the eager wavefront:
