@@ -522,6 +522,70 @@ def phase_kernels(dev, n_rays, headline_rays):
     return report
 
 
+def phase_gather_kernel(dev):
+    """The gather backward's kernel pair (ops/gather.py,
+    csrc/gather_backward.cu) at the grad step's shapes: 2^18 and 2^21
+    lanes of 3 channels into tables of 1, 4 and 64 rows (int64 indices;
+    int32 too at 2^21 x 4): the gradient against a float64
+    index_put_(accumulate=True) (max_rel_err: the largest gap over the
+    row's sum of |terms|), two launches bit-equal, the pair's device ms
+    (both passes, torch.profiler) beside its byte bound (each lane's
+    gradient and index read once), one wrapper call (CUDA events), the
+    plain twin's call (PyTorch's index_put_(accumulate=True), the backward
+    of table[idx]) and index_add_ (atomics) as the library's other route,
+    and the pair's floor on one warp of lanes. Returns the entry's report
+    at 2^21 lanes x 4 rows."""
+    import torch
+
+    from mitsuba_tpu_torch.ops import gather
+
+    report = {}
+    cases = [(n, rows, torch.int64) for n in (1 << 18, 1 << 21) for rows in (1, 4, 64)]
+    cases.append((1 << 21, 4, torch.int32))
+    for n, rows, dtype in cases:
+        gen = torch.Generator(device=dev).manual_seed(n + rows)
+        g = torch.rand((n, 3), generator=gen, device=dev) * 2.0 - 1.0
+        idx = torch.randint(0, rows, (n,), generator=gen, device=dev).to(dtype)
+        shape = torch.Size((rows, 3))
+        ref = torch.zeros(shape, dtype=torch.float64, device=dev).index_put_(
+            (idx,), g.double(), accumulate=True)
+        scale = torch.zeros_like(ref).index_put_((idx,), g.double().abs(), accumulate=True)
+        a = gather.gather_backward(g, idx, shape)
+        b = gather.gather_backward(g, idx, shape)
+        torch.cuda.synchronize(dev)
+        err = float(((a.double() - ref).abs() / scale).max())
+
+        def kernel():
+            gather.gather_backward(g, idx, shape)
+
+        ms = (device_ms(kernel, "gather_backward_partial", dev)
+              + device_ms(kernel, "gather_backward_sum", dev))
+        bound_ms, bound_by = bound(n * (4 * 3 + idx.element_size()), 0)
+        fields = dict(
+            lanes=n, rows=rows, index=str(dtype).split(".")[1], bit_equal=torch.equal(a, b),
+            max_rel_err=err, ms=round(ms, 5), bound_ms=round(bound_ms, 5),
+            bound_by=bound_by, call_ms=round(call_ms(kernel, dev), 5),
+            plain_ms=round(call_ms(lambda: gather.gather_backward_plain(g, idx, shape), dev,
+                                   reps=3), 4),
+            index_add_ms=round(call_ms(lambda: torch.zeros(shape, device=dev).index_add_(
+                0, idx, g), dev), 5))
+        say("gather_kernel", **fields)
+        if not fields["bit_equal"] or not err <= 1e-5:
+            raise AssertionError(f"gather backward kernel: {fields}")
+        if (n, rows, dtype) == (1 << 21, 4, torch.int64):
+            report = fields
+    g1 = torch.rand((32, 3), device=dev)
+    i1 = torch.zeros((32,), dtype=torch.int64, device=dev)
+
+    def one_warp():
+        gather.gather_backward(g1, i1, torch.Size((1, 3)))
+
+    report["floor_ms"] = round(device_ms(one_warp, "gather_backward_partial", dev)
+                               + device_ms(one_warp, "gather_backward_sum", dev), 5)
+    say("gather_kernel_floor", ms=report["floor_ms"])
+    return {"gather_backward": report}
+
+
 def tri_rows(n_tris, seed):
     """(9, T) float32 rows p0 e1 e2 of random triangles in [-1, 1]^3."""
     rs = np.random.RandomState(seed)
@@ -1466,12 +1530,15 @@ def phase_grad_headline(dev, spp):
     backward (each storage once, counted in the profiled step). In the
     profiled step the first launch of each B1 entry at each batch size is
     kept and then rerun through the plain twin (check_kept), bit for bit.
-    Returns B1's launches."""
+    The gather backward's launches and lanes in the first step
+    (ops/gather.py): every gather of a leaf-derived table goes through the
+    kernel, none over its cap. Returns B1's launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from mitsuba_tpu_torch.integrators import boundary, common, path
     from mitsuba_tpu_torch.ops import brute_kernel as bk
+    from mitsuba_tpu_torch.ops import gather
     from mitsuba_tpu_torch.scene import builtin
 
     scene, cam = builtin.cornell_box(256, 256, device=dev)
@@ -1493,11 +1560,14 @@ def phase_grad_headline(dev, spp):
         return float(loss.detach()), [x.grad for x in leaves], t1 - t0, time.perf_counter() - t1
 
     bk.reset_counts()
+    gather.reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     base_gb = torch.cuda.memory_allocated(dev) / 1e9
     loss, grads, fwd_s, bwd_s = step()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches, plain = dict(bk.KERNEL_LAUNCHES), dict(bk.PLAIN_CALLS)
+    gathers = {"launches": gather.KERNEL_LAUNCHES["backward"],
+               "lanes": gather.KERNEL_LANES["backward"], **gather.ROUTED_PLAIN}
     saved = {}
 
     def pack(t):
@@ -1520,14 +1590,15 @@ def phase_grad_headline(dev, spp):
         forward_s=round(fwd_s, 4), backward_s=round(bwd_s, 4),
         peak_gb=round(peak_gb, 3), step_peak_gb=round(peak_gb - base_gb, 3),
         saved_gb=round(sum(saved.values()) / 1e9, 3),
-        b1_launches=launches, b1_plain_calls=plain,
+        b1_launches=launches, b1_plain_calls=plain, gather_backward=gathers,
         twin_checked_rays=twin_checked, twin_mismatches=0, device_busy_s=round(device_s, 4), busy_share=round(device_s / (fwd_s + bwd_s), 4),
         device_kernels=sum(e.count for e in kernels),
         top_ms=[(e.key[:48], round(e.device_time_total / 1e3, 2)) for e in top],
         grad_abs_max=[float(g.abs().max()) for g in grads], finite=finite)
-    if not finite or min(launches.values()) == 0 or any(plain.values()):
+    if not finite or min(launches.values()) == 0 or any(plain.values()) \
+            or gathers["launches"] == 0 or gathers["over_cap"] or gathers["dtype"]:
         raise AssertionError(f"headline gradient: finite {finite}, launches {launches}, "
-                             f"plain calls {plain}")
+                             f"plain calls {plain}, gathers {gathers}")
     return launches
 
 
@@ -5478,7 +5549,7 @@ def main(argv=None) -> int:
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    libs = _build.build_all(["brute_intersect", "bvh_intersect"])
+    libs = _build.build_all(["brute_intersect", "bvh_intersect", "gather_backward"])
     say("build", libraries=[lib.name for lib in libs],
         seconds=round(time.perf_counter() - t0, 3))
     for lib in libs:
@@ -5488,6 +5559,7 @@ def main(argv=None) -> int:
     report.update(phase_bvh_kernel(dev))
     phase_kernel_edges(dev)
     phase_crossover(dev)
+    report.update(phase_gather_kernel(dev))
     if args.kernels_only:
         print(json.dumps({"kernels_only": report}), flush=True)
         return 0

@@ -26,6 +26,7 @@ from ..models import emitter as emitterlib
 from ..models import sensor as sensorlib
 from ..models.emitter import EV_DIR, connect_emitter_vertex, sample_emitter_ray, scene_bsphere
 from ..ops import trace
+from ..ops.gather import gather_rows
 from ..utils import graphs
 from . import bdptmis, common
 from .common import RenderConfig
@@ -184,9 +185,10 @@ def _li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig, light_image: 
         em_id = eye["em"][i]
         cos_l = m.dot(eye["wi"][i], eye["ng"][i])
         hit = eye["valid"][i] & (em_id >= 0) & (cos_l > 0.0)
-        le = em.radiance[torch.clamp_min(em_id, 0)]
+        le = gather_rows(em.radiance, torch.clamp_min(em_id, 0))
         prim = torch.clamp_min(eye["prim"][i], 0)
-        direct_a = m.safe_div(em.select_pdf_full[prim] * pg_area, area_all[prim])
+        direct_a = m.safe_div(gather_rows(em.select_pdf_full, prim) * pg_area,
+                              gather_rows(area_all, prim))
         emission = direct_a * torch.clamp_min(cos_l, 0.0) * INV_PI
         w = bdptmis.weight_hit_area(state(eye, i), direct_a, emission, b)
         L = L + torch.where(hit[:, None], eye["beta"][i] * le * w[:, None], 0.0)

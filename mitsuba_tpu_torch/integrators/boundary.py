@@ -47,6 +47,7 @@ from ..models import bsdf as bsdflib
 from ..models import emitter as emitterlib
 from ..models import sensor as sensorlib
 from ..ops import trace
+from ..ops.gather import gather_rows
 from ..utils.stats import span
 from .common import RenderConfig
 from .path import DIMS_PER_BOUNCE, RAY_EPS, SENSOR_DIMS
@@ -99,8 +100,8 @@ def _sample_edges(scene, sc, u0, u1, edge_w, origin):
     inv_pdf = W * lens / torch.clamp_min(w_imp, 1e-20)
     eidx = torch.clamp(torch.searchsorted(cdf, u0.contiguous()), 0, et.shape[0] - 1)
     row = et[eidx]
-    z = ((1.0 - u1[:, None]) * scene.vertices[row[:, 0]]
-         + u1[:, None] * scene.vertices[row[:, 1]])
+    z = ((1.0 - u1[:, None]) * gather_rows(scene.vertices, row[:, 0])
+         + u1[:, None] * gather_rows(scene.vertices, row[:, 1]))
     z0 = z.detach()
     r = z0 - origin
     dist = _norm(r)
@@ -149,7 +150,7 @@ def _emitted_radiance(scene, prim, d, valid):
     the environment's for misses (JAX boundary.py:145-157)."""
     with span("shading"):
         em = scene.tri_emitter[prim]
-        le = scene.emitters.radiance[torch.clamp_min(em, 0)]
+        le = gather_rows(scene.emitters.radiance, torch.clamp_min(em, 0))
         le = torch.where((valid & (em >= 0) & _front(scene, prim, d))[:, None], le, 0.0)
         return torch.where(valid[:, None], le, emitterlib.env_radiance(scene, d))
 

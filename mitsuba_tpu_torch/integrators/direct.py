@@ -14,6 +14,7 @@ from ..core.rng import SampleStream
 from ..models import bsdf as bsdflib
 from ..models import emitter as emitterlib
 from ..ops import trace
+from ..ops.gather import gather_rows
 from .common import RenderConfig, power_heuristic
 
 SENSOR_DIMS = 4
@@ -37,7 +38,7 @@ def li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig) -> torch.Tenso
     # visible emitter (direct.cpp:166)
     em_id = si["emitter"]
     cos_l = m.dot(si["wi_world"], ng)
-    le = scene.emitters.radiance[torch.clamp_min(em_id, 0)]
+    le = gather_rows(scene.emitters.radiance, torch.clamp_min(em_id, 0))
     vis = active & (em_id >= 0) & (cos_l > 0.0)
     if not cfg.hide_emitters:
         L = L + torch.where(vis[:, None], le, 0.0)
@@ -64,7 +65,7 @@ def li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig) -> torch.Tenso
     em2 = si2["emitter"]
     cos2 = m.dot(-d2, si2["ng"])
     hit_light = its2.valid & (em2 >= 0) & (cos2 > 0.0)
-    le2 = scene.emitters.radiance[torch.clamp_min(em2, 0)]
+    le2 = gather_rows(scene.emitters.radiance, torch.clamp_min(em2, 0))
     pdf_em = emitterlib.pdf_direct_area(scene, o2, d2, its2.t, its2.prim, cos2)
     w2 = torch.where(is_delta, 1.0, power_heuristic(pdf, pdf_em))
     contrib2 = weight * le2 * w2[:, None]

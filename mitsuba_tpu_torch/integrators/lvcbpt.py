@@ -31,6 +31,7 @@ from ..models import bsdf as bsdflib
 from ..models import emitter as emitterlib
 from ..models.emitter import EV_DIR, connect_emitter_vertex, sample_emitter_ray, scene_bsphere
 from ..ops import trace
+from ..ops.gather import gather_rows
 from . import bdptmis
 from .bdpt import _cam_quantities, _mis_exp, _walk
 from .common import RenderConfig
@@ -173,12 +174,13 @@ def li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         em_id = eye["em"][i]
         cos_l = m.dot(eye["wi"][i], eye["ng"][i])
         hit = eye["valid"][i] & (em_id >= 0) & (cos_l > 0.0)
-        le = em.radiance[torch.clamp_min(em_id, 0)]
+        le = gather_rows(em.radiance, torch.clamp_min(em_id, 0))
         if uniform_mode:
             w = full(1.0 if t == 1 else 1.0 / t)
         else:
             prim = torch.clamp_min(eye["prim"][i], 0)
-            direct_a = m.safe_div(em.select_pdf_full[prim] * pg_area, area_all[prim])
+            direct_a = m.safe_div(gather_rows(em.select_pdf_full, prim) * pg_area,
+                                  gather_rows(area_all, prim))
             emission = direct_a * torch.clamp_min(cos_l, 0.0) * INV_PI
             st_i = bdptmis.MisState(eye["dvcm"][i], eye["dvc"][i])
             w = bdptmis.weight_hit_area(st_i, direct_a, emission, b)

@@ -24,6 +24,7 @@ from ..models import bsdf as bsdflib
 from ..models import emitter as emitterlib
 from ..models import sensor as sensorlib
 from ..ops import trace
+from ..ops.gather import gather_rows
 from ..scene import ir as _ir
 from ..utils.stats import span
 from .common import RenderConfig, mis_weight
@@ -85,7 +86,7 @@ def _li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         hit_emitter = em_id >= 0
         cos_l = m.dot(si["wi_world"], ng)   # emitters are one-sided (front = +ng)
         with span("shading"):
-            le = scene.emitters.radiance[torch.clamp_min(em_id, 0)]
+            le = gather_rows(scene.emitters.radiance, torch.clamp_min(em_id, 0))
             le = torch.where((hit_emitter & (cos_l > 0.0))[:, None], le, 0.0)
             pdf_em = emitterlib.pdf_direct_area(scene, o, d, its.t, its.prim, cos_l)
         w_bsdf = torch.where(prev_delta, 1.0, mis_weight(cfg.mis_mode, prev_pdf, pdf_em))

@@ -43,6 +43,7 @@ from ..core.rng import SampleStream
 from ..models import bsdf as bsdflib
 from ..models import emitter as emitterlib
 from ..ops import trace
+from ..ops.gather import gather_rows
 from ..scene import ir as _ir
 from .common import RenderConfig, mis_weight
 from .path import DIMS_PER_BOUNCE, RAY_EPS, SENSOR_DIMS
@@ -72,9 +73,9 @@ def _diff_hit_point(scene, o, d, its):
     divergence term is the mixed partial). Misses return a far point
     attached to the ray. Returns (x, t)."""
     vi = scene.indices[its.prim]
-    v0 = scene.vertices[vi[:, 0]]
-    v1 = scene.vertices[vi[:, 1]]
-    v2 = scene.vertices[vi[:, 2]]
+    v0 = gather_rows(scene.vertices, vi[:, 0])
+    v1 = gather_rows(scene.vertices, vi[:, 1])
+    v2 = gather_rows(scene.vertices, vi[:, 2])
     v0s = v0.detach()
     e1s = v1.detach() - v0s
     e2s = v2.detach() - v0s
@@ -277,7 +278,7 @@ def li_reparam(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig,
         active = active & its.valid
 
         em_id = si["emitter"]
-        le = scene.emitters.radiance[torch.clamp_min(em_id, 0)]
+        le = gather_rows(scene.emitters.radiance, torch.clamp_min(em_id, 0))
         cos_l = m.dot(si["wi_world"], ng)
         le = torch.where(((em_id >= 0) & (cos_l > 0.0))[:, None], le, 0.0)
         pdf_em = emitterlib.pdf_direct_area(scene, o, d, its.t, its.prim, cos_l)

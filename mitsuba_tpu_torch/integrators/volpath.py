@@ -24,6 +24,7 @@ from ..models import emitter as emitterlib
 from ..models import medium as medlib
 from ..models import phase as phaselib
 from ..ops import trace
+from ..ops.gather import gather_rows
 from . import path
 # the surface lanes share path.py's sample window and ray offset
 from .path import DIMS_PER_BOUNCE, RAY_EPS, SENSOR_DIMS
@@ -116,7 +117,7 @@ def li(scene, cam, o, d, stream: SampleStream, cfg: RenderConfig) -> torch.Tenso
         ns, ng, p_s = si["ns"], si["ng"], si["p"]
         em_id = si["emitter"]
         cos_l = m.dot(si["wi_world"], ng)
-        le = scene.emitters.radiance[torch.clamp_min(em_id, 0)]
+        le = gather_rows(scene.emitters.radiance, torch.clamp_min(em_id, 0))
         le = torch.where(((em_id >= 0) & (cos_l > 0.0))[:, None], le, 0.0)
         pdf_em = emitterlib.pdf_direct_area(scene, o, d, its.t, its.prim, cos_l)
         w_hit = torch.where(prev_delta, 1.0, power_heuristic(prev_pdf, pdf_em))

@@ -31,6 +31,7 @@ from ..models import bsdf as bsdflib
 from ..models import emitter as emitterlib
 from ..models import sensor as sensorlib
 from ..ops import trace
+from ..ops.gather import gather_rows
 from ..scene import ir as _ir
 from ..utils import graphs
 from .common import RenderConfig, mis_weight
@@ -179,7 +180,7 @@ def _step(scene, cam, cfg: RenderConfig, fuse: bool, spp_lane: int, s: dict) -> 
     # emitted radiance
     em_id = si["emitter"]
     cos_l = m.dot(si["wi_world"], ng)
-    le = scene.emitters.radiance[torch.clamp_min(em_id, 0)]
+    le = gather_rows(scene.emitters.radiance, torch.clamp_min(em_id, 0))
     le = torch.where(((em_id >= 0) & (cos_l > 0.0))[:, None], le, 0.0)
     pdf_em = emitterlib.pdf_direct_area(scene, o, d, its.t, its.prim, cos_l)
     w_bsdf = torch.where(s["prev_delta"], 1.0,

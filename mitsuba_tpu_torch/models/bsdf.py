@@ -29,6 +29,7 @@ import torch
 
 from ..core import math as m
 from ..core import warp
+from ..ops.gather import gather_rows
 from ..scene import ir
 from . import microfacet as mf
 from . import phase as phaselib
@@ -68,11 +69,12 @@ def _check_families(families):
 
 def _gather(scene, mat, uv, footprint=None, duvdx=None, duvdy=None):
     mats = scene.materials
-    refl = tex.resolve(scene, mats.tex_reflectance[mat], uv, mats.reflectance[mat],
+    refl = tex.resolve(scene, mats.tex_reflectance[mat], uv, gather_rows(mats.reflectance, mat),
                        footprint=footprint, duvdx=duvdx, duvdy=duvdy)
-    return ShadePoint(type=mats.type[mat], reflectance=refl, specular=mats.specular[mat],
-                      eta=mats.eta[mat], k=mats.k[mat], alpha=mats.alpha[mat],
-                      extra=mats.extra[mat])
+    return ShadePoint(type=mats.type[mat], reflectance=refl,
+                      specular=gather_rows(mats.specular, mat), eta=gather_rows(mats.eta, mat),
+                      k=gather_rows(mats.k, mat), alpha=gather_rows(mats.alpha, mat),
+                      extra=gather_rows(mats.extra, mat))
 
 
 def gather_shade_point(scene, mat: torch.Tensor, uv: torch.Tensor,

@@ -26,6 +26,7 @@ import torch
 
 from ..core import math as m
 from ..core import warp
+from ..ops.gather import gather_rows
 from ..scene import envmap as envlib
 from ..scene import ir as _ir
 
@@ -142,9 +143,10 @@ def sample_direct(scene, ref_p: torch.Tensor, u3: torch.Tensor) -> DirectSample:
                       0, em.tri_cdf.shape[0] - 1)
     p0_all, e1_all, e2_all = scene.tri_vertices()
     tri = em.tri_index[idx]
-    p0t, e1t, e2t = p0_all[tri], e1_all[tri], e2_all[tri]
-    radt = em.radiance[em.tri_emitter[idx]]
-    sel_pdf = em.tri_pdf[idx]
+    p0t, e1t, e2t = (gather_rows(p0_all, tri), gather_rows(e1_all, tri),
+                     gather_rows(e2_all, tri))
+    radt = gather_rows(em.radiance, em.tri_emitter[idx])
+    sel_pdf = gather_rows(em.tri_pdf, idx)
     b = warp.square_to_uniform_triangle(u3[..., 1:3])
     pos = p0t + e1t * b[..., 0:1] + e2t * b[..., 1:2]
     ngv = m.cross(e1t, e2t)
@@ -281,9 +283,9 @@ def sample_emitter_ray(scene, u_sel, u_pos, u_dir) -> EmitterRaySample:
     idx = torch.clamp(torch.searchsorted(em.tri_cdf, u_area, right=False),
                       0, em.tri_cdf.shape[0] - 1)
     tri = em.tri_index[idx]
-    sel_area = em.tri_pdf[idx] * max(pg_area, 1e-9)
+    sel_area = gather_rows(em.tri_pdf, idx) * max(pg_area, 1e-9)
     p0, e1, e2 = scene.tri_vertices()
-    p0t, e1t, e2t = p0[tri], e1[tri], e2[tri]
+    p0t, e1t, e2t = gather_rows(p0, tri), gather_rows(e1, tri), gather_rows(e2, tri)
     b = warp.square_to_uniform_triangle(u_pos)
     pos = p0t + e1t * b[..., 0:1] + e2t * b[..., 1:2]
     ngv = m.cross(e1t, e2t)
@@ -291,7 +293,7 @@ def sample_emitter_ray(scene, u_sel, u_pos, u_dir) -> EmitterRaySample:
     ng = ngv / torch.clamp_min(two_a, 1e-20)[:, None]
     area = 0.5 * two_a
     d = m.to_world(ng, warp.square_to_cosine_hemisphere(u_dir))
-    le = em.radiance[em.tri_emitter[idx]]
+    le = gather_rows(em.radiance, em.tri_emitter[idx])
     pdf_pos = m.safe_div(sel_area, area)
     pdf_dir = torch.clamp_min(m.dot(d, ng), 0.0) * (1.0 / math.pi)
     beta_pos = le / torch.clamp_min(pdf_pos, 1e-20)[:, None]
@@ -464,7 +466,7 @@ def pdf_direct_area(scene, ref_p, d, dist, prim, cos_l) -> torch.Tensor:
     em = scene.emitters
     _, e1, e2 = scene.tri_vertices()
     area_all = 0.5 * m.length(m.cross(e1, e2))   # (T,)
-    p_area = m.safe_div(em.select_pdf_full[prim], area_all[prim])
+    p_area = m.safe_div(gather_rows(em.select_pdf_full, prim), gather_rows(area_all, prim))
     pdf = m.safe_div(p_area * dist * dist, torch.abs(cos_l))
     pg_area, _, _ = _group_probs(scene)
     return pdf * pg_area

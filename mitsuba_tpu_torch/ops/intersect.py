@@ -20,6 +20,7 @@ import torch
 
 from ..core import math as m
 from ..models import texture as tex
+from .gather import gather_rows
 
 SHADOW_EPS = 1e-3
 # barycentric slack: rays through shared edges cannot slip between both
@@ -222,15 +223,15 @@ def surface_interaction(scene, o, d, its: Intersection, dd_dx=None, dd_dy=None):
     highlight), which gather_shade_point reads.
     """
     vi = scene.indices[its.prim]
-    v0 = scene.vertices[vi[:, 0]]
-    v1 = scene.vertices[vi[:, 1]]
-    v2 = scene.vertices[vi[:, 2]]
-    n0 = scene.normals[vi[:, 0]]
-    n1 = scene.normals[vi[:, 1]]
-    n2 = scene.normals[vi[:, 2]]
-    t0 = scene.uvs[vi[:, 0]]
-    t1 = scene.uvs[vi[:, 1]]
-    t2 = scene.uvs[vi[:, 2]]
+    v0 = gather_rows(scene.vertices, vi[:, 0])
+    v1 = gather_rows(scene.vertices, vi[:, 1])
+    v2 = gather_rows(scene.vertices, vi[:, 2])
+    n0 = gather_rows(scene.normals, vi[:, 0])
+    n1 = gather_rows(scene.normals, vi[:, 1])
+    n2 = gather_rows(scene.normals, vi[:, 2])
+    t0 = gather_rows(scene.uvs, vi[:, 0])
+    t1 = gather_rows(scene.uvs, vi[:, 1])
+    t2 = gather_rows(scene.uvs, vi[:, 2])
     e1 = v1 - v0
     e2 = v2 - v0
     ngv = m.cross(e1, e2)

@@ -33,6 +33,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.gather import gather_rows
+
 # BSDF type codes (same values as the JAX package)
 BSDF_NULL = 0
 BSDF_DIFFUSE = 1
@@ -266,9 +268,9 @@ class Scene(_Replace):
         """Returns (p0, e1, e2): (T,3) base vertex and edge vectors."""
         v = self.vertices
         i = self.indices
-        p0 = v[i[:, 0]]
-        e1 = v[i[:, 1]] - p0
-        e2 = v[i[:, 2]] - p0
+        p0 = gather_rows(v, i[:, 0])
+        e1 = gather_rows(v, i[:, 1]) - p0
+        e2 = gather_rows(v, i[:, 2]) - p0
         return p0, e1, e2
 
 

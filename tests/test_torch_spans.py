@@ -161,12 +161,14 @@ def test_attribution_on_a_written_trace():
 
 def test_backward_nodes_link_to_forward_spans(tmp_path):
     """On a real CPU profile of a 16x16 render_grad step, the index
-    gathers' backward nodes name forward ops under the program's spans."""
+    gathers' backward nodes (PyTorch's own and ops/gather.py's) name
+    forward ops under the program's spans."""
     events = _profiled_grad_step(tmp_path)
     tr = spans.ProgramTrace(events)
     linked = collections.Counter()
+    nodes = {spans.NODE + "IndexBackward0", spans.NODE + "GatherRowsBackward"}
     for e in events:
-        if e.get("ph") == "X" and e.get("name") == spans.NODE + "IndexBackward0":
+        if e.get("ph") == "X" and e.get("name") in nodes:
             linked[tr.forward_span(e).startswith(spans.PREFIX)] += e["dur"]
     assert linked[True] > 0
     assert linked[True] >= 0.99 * (linked[True] + linked[False])
