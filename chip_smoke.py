@@ -586,6 +586,49 @@ def phase_gather_kernel(dev):
     return {"gather_backward": report}
 
 
+def phase_draw_kernel(dev):
+    """The samplers' draw kernel (core/rng.py, csrc/rng_draw.cu) at the
+    render chunks' lane counts, 2^18 (the sphere's image) and 2^19 (a
+    Cornell chunk), with the main path's parts (a scalar seed, int64 pixel
+    and sample indices, a scalar dim): `uniform` and `hash_u32` against
+    their int64 twins bit for bit, the kernel's device ms (torch.profiler)
+    beside its byte bound (the two index tensors read once, the floats
+    written once), one wrapper call (CUDA events) and the twin's call
+    (~96 elementwise launches), and the floor on one warp of lanes.
+    Returns the entry's report at 2^19 lanes."""
+    import torch
+
+    from mitsuba_tpu_torch.core import rng
+
+    report = {}
+    for n in (1 << 18, 1 << 19):
+        gen = torch.Generator(device=dev).manual_seed(n)
+        pix = torch.randint(0, 1 << 16, (n,), generator=gen, device=dev)
+        smp = torch.randint(0, 1 << 20, (n,), generator=gen, device=dev)
+        parts = (0x5EED, pix, smp, 6)
+        bit_equal = (torch.equal(rng.uniform(*parts), rng.uniform_plain(*parts))
+                     and torch.equal(rng.hash_u32(*parts), rng.hash_u32_plain(*parts)))
+
+        def kernel():
+            rng.uniform(*parts)
+
+        bound_ms, bound_by = bound(n * (8 + 8 + 4), 0)
+        fields = dict(
+            lanes=n, bit_equal=bit_equal, ms=round(device_ms(kernel, "draw_kernel", dev), 5),
+            bound_ms=round(bound_ms, 5), bound_by=bound_by,
+            call_ms=round(call_ms(kernel, dev), 5),
+            plain_ms=round(call_ms(lambda: rng.uniform_plain(*parts), dev), 5))
+        say("draw_kernel", **fields)
+        if not bit_equal:
+            raise AssertionError(f"draw kernel: {fields}")
+        report = fields
+    one = torch.arange(32, device=dev)
+    report["floor_ms"] = round(device_ms(lambda: rng.uniform(1, one, one, 0), "draw_kernel",
+                                         dev), 5)
+    say("draw_kernel_floor", ms=report["floor_ms"])
+    return {"rng_draw": report}
+
+
 def tri_rows(n_tris, seed):
     """(9, T) float32 rows p0 e1 e2 of random triangles in [-1, 1]^3."""
     rs = np.random.RandomState(seed)
@@ -794,6 +837,7 @@ def phase_headline(dev, width, spp):
     both and take the plain route never."""
     import torch
 
+    from mitsuba_tpu_torch.core import rng
     from mitsuba_tpu_torch.integrators import common, wavefront
     from mitsuba_tpu_torch.ops import brute_kernel as bk
     from mitsuba_tpu_torch.scene import builtin
@@ -801,6 +845,7 @@ def phase_headline(dev, width, spp):
     scene, cam = builtin.cornell_box(width=width, height=width, device=dev)
     cfg = common.RenderConfig(spp=spp, max_depth=8, rr_depth=5, seed=0)
     bk.reset_counts()
+    rng.reset_counts()
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     img = wavefront.render(scene, cam, cfg, lanes_per_pixel=1)
@@ -808,6 +853,8 @@ def phase_headline(dev, width, spp):
     render_s = time.perf_counter() - t0
     launches = dict(bk.KERNEL_LAUNCHES)
     plain = dict(bk.PLAIN_CALLS)
+    draws = {"launches": rng.KERNEL_LAUNCHES["draw"], "lanes": rng.KERNEL_LANES["draw"],
+             "plain_calls": rng.PLAIN_CALLS["draw"]}
     rays_per_sample = useful_rays_per_sample(scene, cam, cfg, count_spp=8)
     mean = float(img.mean())
     bk.reset_counts()
@@ -822,7 +869,7 @@ def phase_headline(dev, width, spp):
         tpu_mean=HEADLINE_MEAN, rays_per_sample=round(rays_per_sample, 4),
         useful_rays_per_s=round(useful / render_s), kernel_launches=launches,
         plain_calls=plain, bf16_camera_kernel_launches=launches_bf16,
-        bf16_camera_plain_calls=plain_bf16)
+        bf16_camera_plain_calls=plain_bf16, draws=draws)
     for what, im in (("headline image", img), ("bf16-camera image", img_bf16)):
         if not bool(torch.isfinite(im).all()) or tuple(im.shape) != (width, width, 3):
             raise AssertionError(f"{what}: shape {tuple(im.shape)}, "
@@ -837,6 +884,8 @@ def phase_headline(dev, width, spp):
         if min(counts.values()) == 0 or any(calls.values()):
             raise AssertionError(f"main path bypassed a kernel: launches {counts}, "
                                  f"plain calls {calls}")
+    if draws["launches"] == 0 or draws["plain_calls"]:
+        raise AssertionError(f"main path bypassed the draw kernel: {draws}")
     EAGER_IMAGES["headline"] = (img, cfg, {f"brute_{k}": v for k, v in launches.items()})
     return launches
 
@@ -1536,6 +1585,7 @@ def phase_grad_headline(dev, spp):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from mitsuba_tpu_torch.core import rng
     from mitsuba_tpu_torch.integrators import boundary, common, path
     from mitsuba_tpu_torch.ops import brute_kernel as bk
     from mitsuba_tpu_torch.ops import gather
@@ -1561,11 +1611,14 @@ def phase_grad_headline(dev, spp):
 
     bk.reset_counts()
     gather.reset_counts()
+    rng.reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     base_gb = torch.cuda.memory_allocated(dev) / 1e9
     loss, grads, fwd_s, bwd_s = step()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     launches, plain = dict(bk.KERNEL_LAUNCHES), dict(bk.PLAIN_CALLS)
+    draws = {"launches": rng.KERNEL_LAUNCHES["draw"], "lanes": rng.KERNEL_LANES["draw"],
+             "plain_calls": rng.PLAIN_CALLS["draw"]}
     gathers = {"launches": gather.KERNEL_LAUNCHES["backward"],
                "lanes": gather.KERNEL_LANES["backward"], **gather.ROUTED_PLAIN}
     saved = {}
@@ -1590,15 +1643,16 @@ def phase_grad_headline(dev, spp):
         forward_s=round(fwd_s, 4), backward_s=round(bwd_s, 4),
         peak_gb=round(peak_gb, 3), step_peak_gb=round(peak_gb - base_gb, 3),
         saved_gb=round(sum(saved.values()) / 1e9, 3),
-        b1_launches=launches, b1_plain_calls=plain, gather_backward=gathers,
+        b1_launches=launches, b1_plain_calls=plain, gather_backward=gathers, draws=draws,
         twin_checked_rays=twin_checked, twin_mismatches=0, device_busy_s=round(device_s, 4), busy_share=round(device_s / (fwd_s + bwd_s), 4),
         device_kernels=sum(e.count for e in kernels),
         top_ms=[(e.key[:48], round(e.device_time_total / 1e3, 2)) for e in top],
         grad_abs_max=[float(g.abs().max()) for g in grads], finite=finite)
     if not finite or min(launches.values()) == 0 or any(plain.values()) \
-            or gathers["launches"] == 0 or gathers["over_cap"] or gathers["dtype"]:
+            or gathers["launches"] == 0 or gathers["over_cap"] or gathers["dtype"] \
+            or draws["launches"] == 0 or draws["plain_calls"]:
         raise AssertionError(f"headline gradient: finite {finite}, launches {launches}, "
-                             f"plain calls {plain}, gathers {gathers}")
+                             f"plain calls {plain}, gathers {gathers}, draws {draws}")
     return launches
 
 
@@ -5549,7 +5603,7 @@ def main(argv=None) -> int:
         device=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    libs = _build.build_all(["brute_intersect", "bvh_intersect", "gather_backward"])
+    libs = _build.build_all(["brute_intersect", "bvh_intersect", "gather_backward", "rng_draw"])
     say("build", libraries=[lib.name for lib in libs],
         seconds=round(time.perf_counter() - t0, 3))
     for lib in libs:
@@ -5560,6 +5614,7 @@ def main(argv=None) -> int:
     phase_kernel_edges(dev)
     phase_crossover(dev)
     report.update(phase_gather_kernel(dev))
+    report.update(phase_draw_kernel(dev))
     if args.kernels_only:
         print(json.dumps({"kernels_only": report}), flush=True)
         return 0

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core import math as m
-from ..core.rng import hash_u32, u32_to_uniform
+from ..core.rng import uniform
 
 INV_FOURPI = 1.0 / (4.0 * math.pi)
 
@@ -153,9 +153,9 @@ def _microflake_sample(params, wi, u2, n_tries: int = 16, axis=None):
     accepted = torch.zeros(u2.shape[:-1], dtype=torch.bool, device=wi.device)
     sqrt2 = _const(_SQRT2, wi)
     for t in range(n_tries):
-        xi = u32_to_uniform(hash_u32(b0, b1, 3 * t))
-        up = u32_to_uniform(hash_u32(b0, b1, 3 * t + 1))
-        ua = u32_to_uniform(hash_u32(b0, b1, 3 * t + 2))
+        xi = uniform(b0, b1, 3 * t)
+        up = uniform(b0, b1, 3 * t + 1)
+        ua = uniform(b0, b1, 3 * t + 2)
         arg = torch.clamp((1.0 - 2.0 * xi) / c1, -0.999999, 0.999999)
         ct = torch.clamp(sqrt2 * s * torch.special.erfinv(arg), -1.0, 1.0)
         st = m.safe_sqrt(1.0 - ct * ct)

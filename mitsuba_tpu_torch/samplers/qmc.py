@@ -27,7 +27,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..core.rng import _M32, _u32, hash_u32, u32_to_uniform
+from ..core.rng import _M32, _u32, hash_u32, u32_to_uniform, uniform
 from . import sobol as sobollib
 
 SAMPLER_INDEPENDENT = 0
@@ -168,7 +168,7 @@ def _faure(sample: torch.Tensor, dim: int) -> torch.Tensor:
 
 def _rotated(v, seed, pixel, salt, dim):
     """Cranley-Patterson rotation of v by a per-(pixel, dim) hash, mod 1."""
-    rot = u32_to_uniform(hash_u32(seed, pixel, salt, dim))
+    rot = uniform(seed, pixel, salt, dim)
     return torch.fmod(v + rot, 1.0)
 
 
@@ -176,12 +176,12 @@ def sample_dim(kind: int, seed, pixel, sample, dim: int, spp: int = 0) -> torch.
     """One uniform float per element for dimension `dim` (a Python int) of
     the sampler family `kind`; pixel and sample are integer tensors."""
     if kind == SAMPLER_INDEPENDENT:
-        return u32_to_uniform(hash_u32(seed, pixel, sample, dim))
+        return uniform(seed, pixel, sample, dim)
     sample = _u32(sample)
     if kind == SAMPLER_STRATIFIED:
         # 1D strata over spp samples + hashed jitter
         spp = max(spp, 1)
-        jitter = u32_to_uniform(hash_u32(seed, pixel, sample, dim))
+        jitter = uniform(seed, pixel, sample, dim)
         return (torch.fmod(sample.to(torch.float32), float(spp)) + jitter) / spp
     if kind == SAMPLER_HALTON:
         # global Halton index = sample, per-(pixel, dim) rotation

@@ -20,7 +20,8 @@ eager code. The kernel wrappers count a launch recorded during a capture
 in `CAPTURED_LAUNCHES` and its rays in `CAPTURED_RAYS`, not in
 `KERNEL_LAUNCHES` and `KERNEL_RAYS`; a `Graph` keeps the launches and rays
 it holds and adds them to those on every replay, so a path's launch and
-ray counts are the same eager or replayed.
+ray counts are the same eager or replayed. The trace kernels and the
+samplers' draw kernel (`core/rng`, launches only) are counted so.
 
 Work that draws from a `torch.Generator` (the Metropolis chains' uniforms)
 captures with that generator registered (`capture(..., generators=)`):
@@ -136,13 +137,16 @@ def copy_leaves(dst, src):
 # ---------------------------------------------------------------------------
 
 def _kernel_modules():
+    from ..core import rng
     from ..ops import brute_kernel, bvh_kernel
 
-    return (brute_kernel, bvh_kernel)
+    return (brute_kernel, bvh_kernel, rng)
 
 
 def _captured():
-    return [(dict(mod.CAPTURED_LAUNCHES), dict(mod.CAPTURED_RAYS))
+    """Each kernel module's (launches, rays) counted in captures so far; a
+    module that counts no rays (rng's draw) holds none."""
+    return [(dict(mod.CAPTURED_LAUNCHES), dict(getattr(mod, "CAPTURED_RAYS", {})))
             for mod in _kernel_modules()]
 
 
